@@ -1,0 +1,191 @@
+"""Single-video QA predictor (port of the visual path of
+tdc_video_tpu/eval/runner.py: TDCPredictor.answer and what it calls).
+
+Frames go through the device-side preprocessing (data/images.py); the
+tokenizer is any object with `encode(text) -> List[int]` and
+`decode(ids) -> str`.  No feature cache, audio, batching or speculative
+decoding in this slice.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..compress import budget
+from ..compress.aspect import frame_token_layout
+from ..config import TDCConfig
+from ..constants import DEFAULT_IMAGE_TOKEN, IMAGE_TOKEN_INDEX
+from ..data.conversation import conv_templates
+from ..data.images import device_preprocess, frame_bucket
+from ..data.preprocess import tokenizer_image_token
+from ..device import resolve_device, synchronize
+from ..model import encode_frames
+from ..serving.generate import generate_encoded
+
+
+def _trim_generated(ids, lm_cfg) -> List[int]:
+    """Cut a greedy stream at the first EOS (exclusive)."""
+    out = []
+    for t in ids:
+        t = int(t)
+        if t in lm_cfg.eos_token_ids:
+            break
+        out.append(t)
+    return out
+
+
+def build_text(cfg: TDCConfig, tok, question: str, qformer_prompt: Optional[str] = None):
+    """Prompt ids with the <image> slot as id 0, its position, and the
+    Q-Former conditioning text."""
+    conv = conv_templates[cfg.conv_version].copy()
+    conv.append_message(conv.roles[0], DEFAULT_IMAGE_TOKEN + "\n" + question)
+    conv.append_message(conv.roles[1], None)
+    ids = tokenizer_image_token(conv.get_prompt(), tok,
+                                bos_token_id=getattr(tok, "bos_token_id", None))
+    if "llama3" in cfg.conv_version and len(ids) >= 2 and ids[0] == ids[1] == 128000:
+        ids = ids[1:]  # the template already holds <|begin_of_text|>
+    img = ids.index(IMAGE_TOKEN_INDEX)
+    ids = [t if t != IMAGE_TOKEN_INDEX else 0 for t in ids]
+    return ids, img, qformer_prompt if qformer_prompt is not None else question
+
+
+def request_shape(cfg: TDCConfig, ids, n_frames: int, text_bucket: int) -> Dict[str, int]:
+    """Static sizes of one request: frame bucket T, text bucket L, visual cap
+    max_vis and the prefill length max_len (as the JAX compile keys)."""
+    T = frame_bucket(n_frames)
+    L = text_bucket
+    while len(ids) > L:
+        L *= 2
+    max_vis = min(budget.max_visual_len(cfg, ids), T * (budget.tokens_per_frame(cfg) + 4) + 256)
+    max_vis = int(np.ceil(max_vis / 128) * 128)
+    return {"T": T, "L": L, "max_vis": max_vis, "max_len": L + max_vis + 8}
+
+
+def prefill_shape(cfg: TDCConfig, tok, question: str, n_frames: int, max_new_tokens: int,
+                  text_bucket: int = 512, max_eval_frames: int = 1000) -> Tuple[int, int]:
+    """(prefill rows T, KV-cache capacity S) of one `answer` call."""
+    ids, _, _ = build_text(cfg, tok, question)
+    cap = min(budget.max_num_frames(cfg, ids, train=False), max_eval_frames)
+    shp = request_shape(cfg, ids, min(n_frames, cap), text_bucket)
+    return shp["max_len"], shp["max_len"] + max_new_tokens
+
+
+@dataclass
+class PredictorStats:
+    samples: int = 0
+    encode_s: float = 0.0
+    prefill_s: float = 0.0  # compression + splice + LM prefill
+    decode_s: float = 0.0
+    decode_steps: int = 0
+    last_ids: List[int] = field(default_factory=list)
+
+
+class TDCPredictor:
+    """Single-video QA through the full pipeline, on `device` (CUDA unless
+    the caller passes device="cpu")."""
+
+    def __init__(
+        self,
+        cfg: TDCConfig,
+        params: Any,
+        tokenizer,
+        bert_tokenizer=None,
+        max_new_tokens: int = 5,
+        max_eval_frames: int = 1000,
+        text_bucket: int = 512,
+        attn_impl: str = "flash",
+        device=None,
+    ):
+        self.cfg = cfg
+        self.params = params
+        self.tok = tokenizer
+        self.bert_tok = bert_tokenizer
+        self.max_new_tokens = max_new_tokens
+        self.max_eval_frames = max_eval_frames
+        self.text_bucket = text_bucket
+        self.attn_impl = attn_impl
+        self.device = resolve_device(device)
+        self.stats = PredictorStats()
+
+    def encode_video(self, frames: np.ndarray):
+        """uint8 frames [n, h, w, 3] -> (frame_feats [T, P, H], dino_feats,
+        frame_mask [T] bool, T), T the frame bucket; padded frames are zeros."""
+        T = frame_bucket(len(frames))
+        pad = T - len(frames)
+        u8 = np.concatenate([frames, np.zeros((pad,) + frames.shape[1:], frames.dtype)]) if pad \
+            else np.asarray(frames)
+        fmask = np.arange(T) < len(frames)
+        sig, dino = device_preprocess(torch.from_numpy(u8).to(self.device), self.cfg)
+        ff, df = encode_frames(self.cfg, self.params, sig.to(self.cfg.dtype),
+                               dino.to(self.cfg.dtype), attn_impl=self.attn_impl)
+        return ff, df, fmask, T
+
+    def build_text(self, question: str, qformer_prompt: Optional[str] = None):
+        return build_text(self.cfg, self.tok, question, qformer_prompt)
+
+    def _qformer_ids(self, text: str, max_len: int = 64):
+        if self.bert_tok is None:
+            # no BERT tokenizer: unconditioned compression
+            return np.zeros((max_len,), np.int32), np.zeros((max_len,), bool)
+        enc = self.bert_tok(text, padding="max_length", truncation=True, max_length=max_len)
+        return np.asarray(enc["input_ids"], np.int32), np.asarray(enc["attention_mask"], bool)
+
+    def prepare(self, frames: np.ndarray, question: str, qformer_prompt: Optional[str] = None,
+                max_new_tokens: Optional[int] = None) -> Dict[str, Any]:
+        """Everything `answer` does before generation: prompt ids, frame
+        resample to the token budget, tower encode.  Returns {"ids": prompt
+        ids, "gen": keyword arguments of generate_encoded}."""
+        cfg = self.cfg
+        ids, img_pos, qtext = self.build_text(question, qformer_prompt)
+        cap = min(budget.max_num_frames(cfg, ids, train=False), self.max_eval_frames)
+        if len(frames) > cap:
+            frames = frames[[int(len(frames) / cap * i) for i in range(cap)]]
+
+        t0 = time.perf_counter()
+        ff, df, fmask, T = self.encode_video(frames)
+        synchronize(self.device)
+        self.stats.encode_s = time.perf_counter() - t0
+
+        shp = request_shape(cfg, ids, len(frames), self.text_bucket)
+        padded = np.full((shp["L"],), cfg.lm.pad_token_id, np.int64)
+        padded[: len(ids)] = ids
+        qids, qmask = self._qformer_ids(qtext)
+        tv, qp = frame_token_layout(cfg, frames.shape[1], frames.shape[2])
+
+        def dev(x, dtype=None):
+            return torch.as_tensor(np.asarray(x), device=self.device, dtype=dtype)
+
+        gen = dict(
+            input_ids=dev(padded)[None],
+            image_pos=dev([img_pos], torch.int32),
+            frame_feats=ff[None],
+            dino_feats=df[None],
+            frame_mask=dev(fmask)[None],
+            qformer_text_ids=dev(qids, torch.int64)[None],
+            qformer_text_mask=dev(qmask)[None],
+            text_len=dev([len(ids)], torch.int32),
+            token_valid=dev(tv)[None],
+            query_pool=dev(qp)[None],
+            max_new_tokens=max_new_tokens or self.max_new_tokens,
+            max_len=shp["max_len"],
+            max_visual_len=shp["max_vis"],
+        )
+        return {"ids": ids, "gen": gen}
+
+    def answer(self, frames: np.ndarray, question: str, qformer_prompt: Optional[str] = None,
+               max_new_tokens: Optional[int] = None) -> str:
+        req = self.prepare(frames, question, qformer_prompt, max_new_tokens)
+        timings: Dict[str, float] = {}
+        toks = generate_encoded(self.cfg, self.params, **req["gen"], attn_impl=self.attn_impl,
+                                timings=timings)
+        ids = _trim_generated(toks[0].tolist(), self.cfg.lm)
+        st = self.stats
+        st.samples += 1
+        st.prefill_s, st.decode_s = timings["prefill_s"], timings["decode_s"]
+        st.decode_steps, st.last_ids = int(timings["decode_steps"]), ids
+        return self.tok.decode(ids).strip()

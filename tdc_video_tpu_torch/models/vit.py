@@ -1,0 +1,157 @@
+"""ViT encoder serving the SigLIP and DINOv2 towers (port of
+tdc_video_tpu/models/vit.py, float path).
+
+The patch conv is one matmul over flattened patches; frames are the batch
+axis; layers run in a Python loop.  Each layer's attention goes through
+models/attention.py, which on the card launches K2 (DINOv2, D=64) or K3
+(SigLIP, D=72) on the packed [B, N, H*D] projections in place.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..config import ViTConfig
+from ..device import resolve_device
+from .attention import attention
+from .layers import gelu_tanh, init_layer_norm, init_linear, layer_norm, linear, normal_init
+
+Params = Any
+
+
+def _init_layer(gen, cfg: ViTConfig, dtype, device):
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    p = {
+        "norm1": init_layer_norm(d, dtype, device),
+        "q_proj": init_linear(gen, d, d, dtype, device),
+        "k_proj": init_linear(gen, d, d, dtype, device),
+        "v_proj": init_linear(gen, d, d, dtype, device),
+        "o_proj": init_linear(gen, d, d, dtype, device),
+        "norm2": init_layer_norm(d, dtype, device),
+    }
+    if cfg.use_swiglu:
+        p["mlp"] = {
+            "gate_up": init_linear(gen, d, 2 * f, dtype, device),
+            "down": init_linear(gen, f, d, dtype, device),
+        }
+    else:
+        p["mlp"] = {
+            "fc1": init_linear(gen, d, f, dtype, device),
+            "fc2": init_linear(gen, f, d, dtype, device),
+        }
+    if cfg.layerscale:
+        p["ls1"] = torch.ones((d,), dtype=dtype, device=device)
+        p["ls2"] = torch.ones((d,), dtype=dtype, device=device)
+    return p
+
+
+def init_vit(cfg: ViTConfig, gen: torch.Generator, device=None, dtype=torch.float32) -> Params:
+    from .lm import _stack
+
+    device = resolve_device(device)
+    patch_dim = cfg.patch_size * cfg.patch_size * 3
+    n_pos = cfg.num_patches + (1 if cfg.use_cls_token else 0)
+    params = {
+        "patch_embed": init_linear(gen, patch_dim, cfg.hidden_size, dtype, device),
+        "pos_embed": normal_init(gen, (n_pos, cfg.hidden_size), dtype, device),
+        "layers": _stack([_init_layer(gen, cfg, dtype, device) for _ in range(cfg.num_layers)]),
+        "final_norm": init_layer_norm(cfg.hidden_size, dtype, device),
+    }
+    if cfg.use_cls_token:
+        params["cls_token"] = normal_init(gen, (cfg.hidden_size,), dtype, device)
+    return params
+
+
+def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, 3] -> [B, N, P*P*3] with (ph, pw, c) minor order; trailing
+    pixels past the last whole patch are dropped (stride-`patch` valid conv)."""
+    B, H, W, C = pixels.shape
+    gh, gw = H // patch, W // patch
+    x = pixels[:, : gh * patch, : gw * patch].reshape(B, gh, patch, gw, patch, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, gh * gw, patch * patch * C)
+
+
+@lru_cache(maxsize=32)
+def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] weights of jax.image.resize(method="linear",
+    antialias=False) along one axis (triangle kernel, half-pixel centres,
+    rows normalised, samples outside the input zeroed)."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    sample = (np.arange(n_out, dtype=np.float32) + 0.5) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+    w = np.maximum(0.0, 1.0 - x).astype(np.float32)  # [n_in, n_out]
+    tot = w.sum(0, keepdims=True)
+    w = np.where(np.abs(tot) > 1000.0 * np.finfo(np.float32).eps, w / np.where(tot != 0, tot, 1), 0)
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0)
+    return np.ascontiguousarray(w.T.astype(np.float32))
+
+
+def bilinear_resize_tokens(tokens: torch.Tensor, src_side: int, dst_side: int) -> torch.Tensor:
+    """[B, src*src, C] -> [B, dst*dst, C], matching
+    jax.image.resize(method="linear", antialias=False).  Computed in f32."""
+    if src_side == dst_side:
+        return tokens
+    B, N, C = tokens.shape
+    x = tokens.reshape(B, src_side, src_side, C).float()
+    w = torch.from_numpy(_linear_resize_matrix(src_side, dst_side)).to(x.device)
+    out = torch.einsum("ih,bhwc,jw->bijc", w, x, w)
+    return out.reshape(B, dst_side * dst_side, C).to(tokens.dtype)
+
+
+def _layer_forward(cfg: ViTConfig, p: Params, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    B, N, D = x.shape
+    nh = cfg.num_heads
+    hd = D // nh
+    h = layer_norm(p["norm1"], x, cfg.layer_norm_eps)
+    q = linear(p["q_proj"], h).reshape(B, N, nh, hd)
+    k = linear(p["k_proj"], h).reshape(B, N, nh, hd)
+    v = linear(p["v_proj"], h).reshape(B, N, nh, hd)
+    a = attention(q, k, v, impl=attn_impl).reshape(B, N, D)
+    a = linear(p["o_proj"], a)
+    if cfg.layerscale:
+        a = a * p["ls1"].to(a.dtype)
+    x = x + a
+
+    h = layer_norm(p["norm2"], x, cfg.layer_norm_eps)
+    if cfg.use_swiglu:
+        g, u = linear(p["mlp"]["gate_up"], h).chunk(2, dim=-1)
+        m = linear(p["mlp"]["down"], torch.nn.functional.silu(g) * u)
+    else:
+        m = linear(p["mlp"]["fc2"], gelu_tanh(linear(p["mlp"]["fc1"], h)))
+    if cfg.layerscale:
+        m = m * p["ls2"].to(m.dtype)
+    return x + m
+
+
+def vit_forward(
+    cfg: ViTConfig,
+    params: Params,
+    pixels: torch.Tensor,  # [B, H, W, 3] normalized
+    interpolate: bool = True,
+    attn_impl: str = "xla",
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Returns patch features [B, N (or interp_tokens), C]; CLS dropped."""
+    from .lm import _tree_index
+
+    x = patchify(pixels.to(dtype), cfg.patch_size)
+    x = linear(params["patch_embed"], x)
+    B = x.shape[0]
+    if cfg.use_cls_token:
+        cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
+        x = torch.cat([cls, x], dim=1)
+    x = x + params["pos_embed"].to(x.dtype)[None]
+    for i in range(cfg.num_layers):
+        x = _layer_forward(cfg, _tree_index(params["layers"], i), x, attn_impl)
+    # both HF towers layer-norm the sequence output
+    x = layer_norm(params["final_norm"], x, cfg.layer_norm_eps)
+    if cfg.use_cls_token:
+        x = x[:, 1:]
+    if interpolate:
+        x = bilinear_resize_tokens(x, cfg.grid_size, int(cfg.interp_tokens**0.5))
+    return x

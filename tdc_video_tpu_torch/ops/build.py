@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels and load them through ctypes.
+
+Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes).  Libraries go to `tdc_video_tpu_torch/_build/`, named by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one is
+reused.  `build_all` starts one nvcc per source, all at once.
+
+Nothing here runs at import: the CPU tests import every module, and this
+host may have no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("flash_kernel", "full_attention_nhd", "full_attention_nhd_seqq")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names=SOURCES) -> Tuple[Dict[str, Path], float, str]:
+    """Compile every missing library, one nvcc process per source, all
+    started together.  Returns ({name: path}, seconds, compiler output with
+    ptxas's registers and spills per kernel)."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: _lib_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    procs: List[Tuple[str, subprocess.Popen, Path]] = []
+    if todo:
+        nvcc = nvcc_path()
+        for n in todo:
+            tmp = paths[n].with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs.append((n, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True), tmp))
+    logs, failed = [], []
+    for n, proc, tmp in procs:
+        out, _ = proc.communicate()
+        logs.append(f"--- nvcc {n}.cu (rc {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(n)
+        else:
+            os.replace(tmp, paths[n])
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    return paths, time.perf_counter() - t0, log
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use."""
+    if name not in _libs:
+        paths, _, _ = build_all((name,))
+        lib = ctypes.CDLL(str(paths[name]))
+        fn = getattr(lib, f"tdc_{name}_fwd")
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,  # q, k, v, o, lse (or None)
+            ctypes.c_int,  # is_f32
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,  # B, T, S, Hq, Hkv, D, kv_len
+            ctypes.POINTER(ctypes.c_int64),  # 12 strides
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,  # causal, scale, stream
+        ]
+        fn.restype = ctypes.c_int
+        lib.tdc_error_string.argtypes = [ctypes.c_int]
+        lib.tdc_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]

@@ -1,0 +1,60 @@
+"""The port imports neither JAX nor the JAX package, and its entry points do
+not drop silently to the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_and_smoke_script_import_no_jax():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import tdc_video_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for n in names:
+            importlib.import_module(n)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "tdc_video_tpu."))
+                     or m == "tdc_video_tpu")
+        assert not bad, bad
+        assert len(names) >= 20, names
+        print(len(names))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_without_device_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from tdc_video_tpu_torch.config import LM_TINY, tdc_tiny
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.model import init_tdc
+    from tdc_video_tpu_torch.models.lm import init_kv_cache
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_kv_cache(LM_TINY, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_tdc(tdc_tiny(), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TDCPredictor(tdc_tiny(), params={}, tokenizer=None)
+
+
+def test_smoke_script_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
