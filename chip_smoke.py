@@ -5,19 +5,37 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device and build: the card's name and power limit, the CUDA version, and
-   an nvcc build of every kernel from tdc_video_tpu_torch/csrc/;
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes in bf16 (and a small f32 case), with error, time, the plain
-   version's time, one F.scaled_dot_product_attention call as a yardstick
-   (the port never calls it) and the least time the card could take;
-3. the main path: TDC-Llama3.2-3B at full width and depth with random
+   an nvcc build of all six kernel libraries from tdc_video_tpu_torch/csrc/
+   (one nvcc per source, all started together), with ptxas's registers and
+   spills;
+2. each kernel against its plain PyTorch version on the card, at its paths'
+   shapes in bf16 (and a small f32 case), with error, time, the plain
+   version's time, a PyTorch yardstick the port never calls (one
+   F.scaled_dot_product_attention call for the forward kernels; its
+   backward, forward+backward less forward, for K5 and K6) and the least
+   time the card could take; K5 and K6 are held row by row (each query's dQ,
+   each key's dK and dV) at the stage-2 LM shape and both tower shapes;
+3. the serving path: TDC-Llama3.2-3B at full width and depth with random
    weights from a seed, answering one question about 16 synthetic 360x640
    frames through TDCPredictor.answer, with the kernels' launch counters set
    to 0 just before and read just after;
 4. LM prefill of the same request with attn_impl="flash" and "xla" (plain
    sdpa): finite logits, the same argmax, a bounded difference;
 5. torch.profiler over each stage of one more answer (device busy share,
-   device time by kernel).
+   device time by kernel);
+6. the training path: the stage-2 video-SFT preset (f32 master params, bf16
+   compute, towers frozen) at full width and depth, one synthetic sample of
+   64 frames and a Llama-3 conversation padded to 8192 tokens.  First one
+   loss-and-gradient pass with attn_impl="flash" and one with "xla", held
+   to each other (the loss, all LM gradients, and each layer's q/k/v/o
+   projection gradient on its own); then 2 optimizer steps (4 micro-steps) through
+   Trainer.train_step, with the launch counters read per micro-step, and a
+   fifth micro-step under torch.profiler;
+7. the same preset with the towers trainable and the LM frozen: 2 optimizer
+   steps of one micro-step each (the first update of a warmup from 0 has
+   learning rate 0), which run the tower backward (K4, K5, K6).  8 frames,
+   cut to 4 and then 2 if a step runs out of memory (the cut is printed, and
+   K4's row is measured again at the frame count that ran).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -25,8 +43,11 @@ line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -34,8 +55,13 @@ import sys
 import time
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+# the tower-trainable step (phase 7) peaks within a few GiB of the card's
+# memory: growable segments keep the allocator from failing on fragmentation
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet, dense, at a 700 W limit)
@@ -53,6 +79,33 @@ LOGIT_ATOL = 0.25
 QUESTION = "What happens in this video? Answer briefly."
 N_FRAMES, FRAME_H, FRAME_W = 16, 360, 640
 MAX_NEW_TOKENS = 16
+# backward kernels vs plain, bf16: dQ, dK, dV are each rounded to bf16 once
+# from f32 sums taken in another order over P and dS rounded at the same
+# places.  Held per row (_compare_rows).  A late causal row that skipped one
+# 64-wide tile of its ~T random terms would move by ~sqrt(64 / T) of its
+# norm, 9% at T=8192
+BWD_ROW_RTOL = 2e-2
+TRAIN_T = 8192  # stage-2 model_max_length
+# training shapes: stage 2 at model_max_length tokens; the tower-trainable
+# step's frame count (phase 7), which the K4-K6 tower timings use
+TRAIN_FRAMES = 64
+TRAIN_TEXT_LEN = 2048
+TOWER_FRAMES = 8
+LM_T_CHECK = 2048  # K5/K6 against their plain versions at the LM's widths
+# flash vs xla stage-2 loss in bf16 at full depth: per-token logits differ
+# by <~0.1 (phase 4 bound 0.25 on single logits); the mean CE over
+# thousands of tokens differs far less
+LOSS_ATOL = 0.05
+GRAD_COS_MIN = 0.99
+# launches per micro-step: K1 28 forward + 28 remat recompute; K5/K6 once
+# per LM layer; K2 40 (DINOv2) and K3 27 (SigLIP) tower forwards; with the
+# towers trainable K4 recomputes each of the 67 tower attentions and K5/K6
+# run there too
+DEVICE = "cuda"
+STAGE2_LAUNCHES = {"flash_kernel": 56, "full_attention_nhd": 40, "full_attention_nhd_seqq": 27,
+                   "full_attention": 0, "flash_dq_kernel": 28, "flash_dkv_kernel": 28}
+TOWER_LAUNCHES = {"flash_kernel": 56, "full_attention_nhd": 40, "full_attention_nhd_seqq": 27,
+                  "full_attention": 67, "flash_dq_kernel": 95, "flash_dkv_kernel": 95}
 
 
 def log(msg: str) -> None:
@@ -189,7 +242,8 @@ def phase_kernels(T: int, S: int):
             f"bound {b_ms:.3f} ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
         rows.append({
             "name": name, "route": "cuda", "source": f"tdc_video_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": 0, "max_abs_err": max_abs, "ms": ms,
+            "replaces": replaces, "shape": f"q [{B}, {Tq}, {Hq}, {D}], kv [{B}, {Sk}, {Hkv}, {D}]",
+            "launches": 0, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         })
 
@@ -209,6 +263,154 @@ def phase_kernels(T: int, S: int):
     log("kernels " + json.dumps({r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                                  for r in rows}))
     return rows
+
+
+def _row(name, shape, replaces, max_abs, ms, plain_ms, lib_ms, flops, nbytes):
+    """One entry of the kernels line, logged with its TFLOP/s."""
+    b_ms, b_by = bound_ms(flops, nbytes)
+    log(f"[2] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms, yardstick {lib_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
+    return {
+        "name": name, "route": "cuda", "source": f"tdc_video_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces, "shape": shape, "launches": 0, "max_abs_err": max_abs, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    }
+
+
+def _rnd_fn(seed: int):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=DEVICE, dtype=torch.float32).to(dtype)
+
+    return rnd
+
+
+def _towers(frames: int):
+    return {"DINOv2": (frames, 730, 24, 64), "SigLIP": (frames, 729, 16, 72)}
+
+
+def k4_row(frames: int):
+    """K4 (non-causal full attention with lse, packed [B, N, H*D]
+    projections) against its plain version and timed at both tower shapes
+    of `frames` frames, plus a small f32 case; returns the DINOv2 row."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    rnd = _rnd_fn(SEED + 3)
+    rows = []
+    for tower, (B, N, H, D) in _towers(frames).items():
+        scale = 1.0 / math.sqrt(D)
+        q, k, v = (rnd(B, N, H * D).view(B, N, H, D) for _ in range(3))
+        o, lse = fa.full_attention(q, k, v, scale)
+        o_r, lse_r = fa.full_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        _compare(f"full_attention {tower} lse", lse, lse_r, 1e-3, 1e-3)
+        max_abs = _compare(f"full_attention {tower}", o, o_r, BF16_ATOL, BF16_RTOL)
+        ms = time_ms(lambda: fa.full_attention(q, k, v, scale))
+        plain_ms = time_ms(lambda: fa.full_attention_plain(q, k, v, scale), reps=3, rounds=3)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale))
+        rows.append(_row("full_attention", f"{tower} [{B}, {N}, {H}x{D}]",
+                         "tdc_video_tpu/ops/flash_attention.py:104", max_abs, ms, plain_ms, lib_ms,
+                         4.0 * B * H * N * N * D, 2.0 * 4 * B * N * H * D + 4.0 * B * H * N))
+        q2, k2, v2 = (rnd(2, 145, 4, D, dtype=torch.float32) for _ in range(3))
+        o2, l2 = fa.full_attention(q2, k2, v2, scale)
+        r2, rl2 = fa.full_attention_plain(q2, k2, v2, scale)
+        torch.cuda.synchronize()
+        _compare(f"full_attention {tower} f32", o2, r2, F32_ATOL, F32_ATOL)
+        _compare(f"full_attention {tower} f32 lse", l2, rl2, F32_ATOL, F32_ATOL)
+    return rows[0]
+
+
+def _compare_rows(name, out, ref, rtol):
+    """A gradient held row by row (one query's dQ, one key's dK or dV):
+    |out_r - ref_r| <= rtol * max(|ref_r|, RMS of |ref_r| / 10), so late
+    causal rows, whose gradients are small, are held to their own size.
+    Returns max|out - ref|."""
+    o, r = out.float().flatten(0, -2), ref.float().flatten(0, -2)
+    err, norm = (o - r).norm(dim=-1), r.norm(dim=-1)
+    floor = max(0.1 * float(norm.square().mean().sqrt()), 1e-30)
+    worst = float((err / norm.clamp_min(floor)).max())
+    max_abs = float((o - r).abs().max())
+    ok = bool(torch.isfinite(out).all()) and worst <= rtol
+    log(f"[2] {name}: worst row |err|/|ref| {worst:.3e} (tol {rtol:g}), max_abs {max_abs:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return max_abs
+
+
+def phase_train_kernels():
+    """K4, K5 and K6 against their plain versions and timed.  K4 at both
+    tower shapes of the tower-trainable step.  K5 and K6 checked row by row
+    at the LM's widths with T=2048, at the stage-2 LM shape (T = S = 8192,
+    causal, GQA 24/8, D = 128), at both tower shapes and in small f32 cases,
+    and timed at the stage-2 LM shape and the tower shapes.  Rows carry the
+    DINOv2 timing of K4 and the stage-2 LM timing and error of K5/K6; the
+    others are printed."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    rnd = _rnd_fn(SEED + 2)
+    rows = {"full_attention": k4_row(TOWER_FRAMES)}
+
+    def bwd_inputs(B, T, Hq, Hkv, D, causal, dtype, packed):
+        """q, k, v, dO, and lse, delta from the kernel forward (K1 or K4)."""
+        if packed:
+            q, k, v = (rnd(B, T, Hq * D, dtype=dtype).view(B, T, Hq, D) for _ in range(3))
+        else:
+            q, k, v = rnd(B, T, Hq, D, dtype=dtype), rnd(B, T, Hkv, D, dtype=dtype), \
+                rnd(B, T, Hkv, D, dtype=dtype)
+        do = rnd(B, T, Hq, D, dtype=dtype)
+        o, lse = fa._gqa_fwd(q, k, v, 1.0 / math.sqrt(D), causal)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
+        return q, k, v, do, lse, delta
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # label, (B, T, Hq, Hkv, D), causal, packed, dtype, timed
+        (f"LM T={LM_T_CHECK} causal GQA 24/8", (1, LM_T_CHECK, 24, 8, 128), True, False, bf16, False),
+        ("LM f32", (1, 200, 6, 2, 128), True, False, f32, False),
+        (f"LM T={TRAIN_T} causal GQA 24/8", (1, TRAIN_T, 24, 8, 128), True, False, bf16, True),
+    ]
+    for tower, (B, N, H, D) in _towers(TOWER_FRAMES).items():
+        cases += [(f"{tower} f32", (2, 145, 4, 4, D), False, True, f32, False),
+                  (f"{tower} [{B}, {N}, {H}x{D}]", (B, N, H, H, D), False, True, bf16, True)]
+    for label, (B, T, Hq, Hkv, D), causal, packed, dtype, timed in cases:
+        args = bwd_inputs(B, T, Hq, Hkv, D, causal, dtype, packed)
+        scale = 1.0 / math.sqrt(D)
+        rtol = BWD_ROW_RTOL if dtype == bf16 else F32_ATOL
+        dq = fa.flash_dq_kernel(*args, scale, causal)
+        dk, dv = fa.flash_dkv_kernel(*args, scale, causal)
+        dq_r = fa.flash_dq_plain(*args, scale, causal)
+        dk_r, dv_r = fa.flash_dkv_plain(*args, scale, causal)
+        torch.cuda.synchronize()
+        err = {"flash_dq_kernel": _compare_rows(f"flash_dq_kernel dQ {label}", dq, dq_r, rtol),
+               "flash_dkv_kernel": max(_compare_rows(f"flash_dkv_kernel dK {label}", dk, dk_r, rtol),
+                                       _compare_rows(f"flash_dkv_kernel dV {label}", dv, dv_r, rtol))}
+        del dq, dk, dv, dq_r, dk_r, dv_r
+        if not timed:
+            continue
+        q, k, v, do = args[:4]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
+                                                      enable_gqa=Hq != Hkv)
+        fwd_ms = time_ms(sdpa)
+        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do.transpose(1, 2)))
+        lib_ms = fwd_bwd_ms - fwd_ms
+        pairs = T * (T + 1) // 2 if causal else T * T
+        io = 2.0 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) + 8.0 * B * Hq * T  # q, dO, k, v, lse, delta
+        for name, mult, out_bytes in (("flash_dq_kernel", 6, 2.0 * B * T * Hq * D),
+                                      ("flash_dkv_kernel", 8, 4.0 * B * T * Hkv * D)):
+            fn = getattr(fa, name)
+            ms = time_ms(lambda: fn(*args, scale, causal))
+            plain = getattr(fa, name.replace("_kernel", "_plain"))
+            plain_ms = time_ms(lambda: plain(*args, scale, causal), reps=2, rounds=3, warmup=1)
+            r = _row(name, f"{label} (yardstick: SDPA backward, dQ+dK+dV)",
+                     "tdc_video_tpu/ops/flash_attention.py:" + ("433" if name == "flash_dq_kernel" else "489"),
+                     err[name], ms, plain_ms, lib_ms, mult * pairs * D * B * Hq, io + out_bytes)
+            rows.setdefault(name, r)
+    log("kernels " + json.dumps({r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                                 for r in rows.values()}))
+    return list(rows.values())
 
 
 # ---------------------------------------------------------------------------
@@ -240,17 +442,18 @@ class ByteTokenizer:
         return bytes(int(t) - 1000 for t in ids if 1000 <= int(t) < 1256).decode("utf-8", "replace")
 
 
-def synth_frames(seed: int) -> np.ndarray:
-    """16 uint8 frames: a textured background and a bright square that moves,
-    with a scene change every 4 frames (new background)."""
+def synth_frames(seed: int, n: int = N_FRAMES) -> np.ndarray:
+    """n uint8 frames: a textured background and a bright square that moves
+    (its path restarts every 16 frames), with a scene change every 4 frames
+    (new background)."""
     rng = np.random.default_rng(seed)
-    frames = np.empty((N_FRAMES, FRAME_H, FRAME_W, 3), np.uint8)
-    for t in range(N_FRAMES):
+    frames = np.empty((n, FRAME_H, FRAME_W, 3), np.uint8)
+    for t in range(n):
         if t % 4 == 0:
             bg = rng.integers(0, 256, (FRAME_H // 8, FRAME_W // 8, 3), dtype=np.uint8)
             bg = np.kron(bg, np.ones((8, 8, 1), np.uint8))
         f = bg.copy()
-        y, x = 40 + 15 * t, 60 + 30 * t
+        y, x = 40 + 15 * (t % 16), 60 + 30 * (t % 16)
         f[y:y + 80, x:x + 80] = 255
         frames[t] = f
     return frames
@@ -321,13 +524,29 @@ def phase_flash_vs_xla(cfg, params, pred, frames):
         raise AssertionError("flash and xla prefill disagree")
 
 
-def phase_profile(pred, frames) -> None:
-    """torch.profiler over the stages of one more `answer` (encode; compress
-    + prefill; compress + prefill + decode): wall time, the device's busy
-    time and share, and device time by kernel."""
+def profile_stage(tag: str, name: str, fn) -> None:
+    """torch.profiler over one call of fn: wall time, the device's busy time
+    and share, and the 8 largest device items by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    log(f"[{tag}] {name}: wall {wall:.4f} s, device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} device ops")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def phase_profile(pred, frames) -> None:
+    """torch.profiler over the stages of one more `answer` (encode; compress
+    + prefill; compress + prefill + decode)."""
     from tdc_video_tpu_torch.serving.generate import generate_encoded, prefill_encoded
 
     req = {}
@@ -340,18 +559,271 @@ def phase_profile(pred, frames) -> None:
                                                              attn_impl=pred.attn_impl)),
     ]
     for name, fn in stages:
+        profile_stage("5", name, fn)
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-7
+# ---------------------------------------------------------------------------
+
+TRAIN_QUESTION = "Describe what happens in this video, scene by scene."
+TRAIN_SCENES = ("a textured background of coloured tiles fills the frame",
+                "a bright white square enters from the upper left",
+                "the square moves steadily down and to the right",
+                "the background changes to a new pattern every four seconds")
+
+
+def train_conversation():
+    """A three-turn Llama-3 conversation about the clip: about 2,000 bytes
+    (the byte-level tokenizer's token count), so that with the visual
+    tokens the spliced sequence fills most of the 8192 rows."""
+    answer = " ".join(f"In scene {i + 1}, {TRAIN_SCENES[i % 4]}, and the camera holds still "
+                      f"while the light stays even across the whole frame." for i in range(12))
+    return [
+        {"from": "human", "value": "<image>\n" + TRAIN_QUESTION},
+        {"from": "gpt", "value": answer},
+        {"from": "human", "value": "How many times does the background change?"},
+        {"from": "gpt", "value": "It changes " + ", then ".join(["once more"] * 15) + "."},
+        {"from": "human", "value": "What colour is the square?"},
+        {"from": "gpt", "value": "The square is bright white throughout the clip."},
+    ]
+
+
+def train_batch(cfg, n_frames: int):
+    """One stage-2 sample as the JAX trainer's batch dict of numpy arrays:
+    preprocess/pack_text labels (assistant turns only), n_frames synthetic
+    frames through the device-side preprocessing, the Q-Former prompt ids,
+    and the aspect layout of 360x640 frames."""
+    from tdc_video_tpu_torch.compress.aspect import frame_token_layout
+    from tdc_video_tpu_torch.data.images import device_preprocess
+    from tdc_video_tpu_torch.data.preprocess import pack_text, preprocess
+
+    tok = ByteTokenizer()
+    out = preprocess([train_conversation()], tok, cfg.conv_version, has_image=True)
+    packed = pack_text(out["input_ids"], out["labels"], TRAIN_TEXT_LEN, cfg.lm.pad_token_id)
+    qids = np.zeros((1, 64), np.int32)
+    enc = tok.encode(" ".join(out["prompts"]))[:64]
+    qids[0, :len(enc)] = enc
+    frames = synth_frames(SEED + 1, n_frames)
+    sig, dino = device_preprocess(torch.from_numpy(frames).to(DEVICE), cfg)
+    tv, qp = frame_token_layout(cfg, FRAME_H, FRAME_W)
+    return {
+        "input_ids": packed["input_ids"], "labels": packed["labels"],
+        "image_pos": packed["image_pos"], "text_len": packed["text_len"],
+        "has_image": packed["has_image"],
+        "siglip_px": sig[None].cpu().numpy(), "dino_px": dino[None].cpu().numpy(),
+        "frame_mask": np.ones((1, n_frames), bool),
+        "qformer_text_ids": qids, "qformer_text_mask": qids > 0,
+        "token_valid": tv[None], "query_pool": qp[None],
+    }
+
+
+def _named_leaves(params):
+    from tdc_video_tpu_torch.train.step import tree_map_with_path
+
+    out = {}
+    tree_map_with_path(lambda path, t: out.__setitem__("/".join(path), t), params)
+    return out
+
+
+def _micro_steps(trainer, batch, n: int, expected: dict, tag: str):
+    """n calls of train_step, each with the launch counters set to 0 just
+    before and read just after; returns (losses, walls, last counts)."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    losses, walls = [], []
+    for i in range(n):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        log(f"[5] {name}: wall {wall:.4f} s, device busy {busy:.4f} s "
-            f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} device ops")
-        for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-            log(f"[5]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(batch))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+        counts = dict(fa.launches)
+        losses.append(loss)
+        log(f"[{tag}] micro-step {i + 1}: loss {loss:.6f}, wall {walls[-1]:.3f} s, "
+            f"optimizer updates {trainer.tx.count}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB, launches {json.dumps(counts)}")
+        if not math.isfinite(loss):
+            raise AssertionError("non-finite training loss")
+        if counts != expected:
+            raise AssertionError(f"launches {counts}, expected {expected}")
+    return losses, walls, counts
+
+
+def _check_changes(tag, params, snap, must_change, must_keep, zero_grad):
+    """Leaves under `must_change` differ from the snapshot unless their
+    gradient was all zero; leaves under `must_keep` are bitwise equal."""
+    unchanged, moved_frozen = [], []
+    for name, t in _named_leaves(params).items():
+        same = torch.equal(t.detach().cpu(), snap[name])
+        if name.split("/")[0] in must_keep and not same:
+            moved_frozen.append(name)
+        if name.split("/")[0] in must_change and same:
+            unchanged.append(name)
+    stuck = [n for n in unchanged if n not in zero_grad]
+    log(f"[{tag}] unchanged trainable leaves (all-zero gradient): {unchanged}")
+    if stuck or moved_frozen:
+        raise AssertionError(f"trainable leaves that did not change: {stuck}; "
+                             f"frozen leaves that changed: {moved_frozen}")
+    log(f"[{tag}] every trainable leaf with a gradient changed; {sorted(must_keep)} bitwise unchanged")
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a * b).sum() / ((a * a).sum() * (b * b).sum()).sqrt().clamp_min(1e-300))
+
+
+def phase_train(cfg):
+    """Stage-2 video SFT at full width and depth: flash vs xla loss and LM
+    gradients, then 2 optimizer steps.  Returns (params, counts of K5/K6 per
+    micro-step)."""
+    from tdc_video_tpu_torch.model import init_tdc, prepare_multimodal_inputs, tdc_loss
+    from tdc_video_tpu_torch.train.stages import stage2_video_sft
+    from tdc_video_tpu_torch.train.step import train_view
+    from tdc_video_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    params = init_tdc(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, torch.float32)
+    torch.cuda.synchronize()
+    log(f"[6] init_tdc f32 in {time.perf_counter() - t0:.1f} s")
+    tcfg = dataclasses.replace(stage2_video_sft(), max_steps=2, report_to="none")
+    assert tcfg.model_max_length == TRAIN_T
+    batch = train_batch(cfg, TRAIN_FRAMES)
+    n_text = int(batch["text_len"][0])
+    n_lab = int((batch["labels"] >= 0).sum())
+    log(f"[6] sample: {TRAIN_FRAMES} frames, {n_text} text tokens ({n_lab} labelled), LM rows "
+        f"{tcfg.model_max_length}, max_visual_len {tcfg.max_visual_len}, loss_chunk {tcfg.loss_chunk}")
+    trainer = Trainer(cfg, tcfg, params, total_steps=tcfg.max_steps, device=dev)
+    n_train = sum(t.numel() for t in trainer.tx.params)
+    log(f"[6] trainable {n_train / 1e9:.3f} B params (LM, SVA, compressor, image_newline); "
+        f"towers frozen")
+
+    # one loss-and-gradient pass per attention path, before the optimizer state exists
+    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    for k in ("siglip_px", "dino_px"):
+        b[k] = b[k].to(cfg.dtype)
+    # the spliced sequence's non-pad rows (text less the <image> slot, plus
+    # the visual tokens), for the tokens/s of real tokens
+    with torch.no_grad():
+        mm = prepare_multimodal_inputs(
+            cfg, params, b["input_ids"], b["image_pos"], b["siglip_px"], b["dino_px"],
+            b["frame_mask"], b["qformer_text_ids"], b["qformer_text_mask"], labels=b["labels"],
+            text_len=b["text_len"], has_image=b["has_image"], token_valid=b["token_valid"],
+            query_pool=b["query_pool"], max_len=tcfg.model_max_length,
+            max_visual_len=tcfg.max_visual_len, attn_impl="flash")
+        n_real = int(mm["attn_mask"].sum())
+        del mm
+    n_vis = n_real - (n_text - 1)
+    log(f"[6] spliced sequence: {n_real} non-pad rows of {tcfg.model_max_length} "
+        f"({n_text - 1} text + {n_vis} visual tokens)")
+    view = train_view(params)
+    lm_leaves = {n: t for n, t in _named_leaves(params).items() if n.startswith("lm/")}
+    losses, flash_grads, zero_grad = {}, {}, set()
+    for impl in ("flash", "xla"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tdc_loss(cfg, view, b, max_len=tcfg.model_max_length,
+                        max_visual_len=tcfg.max_visual_len, attn_impl=impl, remat=True,
+                        loss_chunk=tcfg.loss_chunk)
+        loss.backward()
+        losses[impl] = float(loss.detach())
+        log(f"[6] {impl}: loss {losses[impl]:.6f}, loss+grads {time.perf_counter() - t0:.3f} s, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if impl == "flash":
+            flash_grads = {n: t.grad.cpu() for n, t in lm_leaves.items()}
+            zero_grad = {n for n, t in _named_leaves(params).items()
+                         if t.requires_grad and not bool(t.grad.any())}
+        else:
+            dot = nf = nx = 0.0
+            for n, t in lm_leaves.items():
+                gf = flash_grads[n].to(dev, torch.float64)
+                gx = t.grad.to(torch.float64)
+                dot += float((gf * gx).sum())
+                nf += float((gf * gf).sum())
+                nx += float((gx * gx).sum())
+            cos = dot / math.sqrt(nf * nx)
+            # each attention projection of each layer on its own: the K5/K6
+            # gradients reach the LM through these only
+            attn_cos = {f"{n}[{i}]": _cosine(flash_grads[n][i].to(dev), t.grad[i])
+                        for n, t in lm_leaves.items() if re.fullmatch(r"lm/layers/[qkvo]_proj/\w+", n)
+                        for i in range(t.shape[0])}
+        trainer.tx.zero_grad()
+    del flash_grads
+    diff = abs(losses["flash"] - losses["xla"])
+    worst = min(attn_cos, key=attn_cos.get)
+    log(f"[6] flash vs xla: |loss diff| {diff:.3e} (tol {LOSS_ATOL}), cosine of the LM gradients "
+        f"{cos:.6f} (min {GRAD_COS_MIN}); worst of {len(attn_cos)} per-layer q/k/v/o_proj "
+        f"gradients {worst} {attn_cos[worst]:.6f} (min {GRAD_COS_MIN})")
+    if (not all(math.isfinite(x) for x in losses.values()) or diff > LOSS_ATOL
+            or cos < GRAD_COS_MIN or attn_cos[worst] < GRAD_COS_MIN):
+        raise AssertionError("flash and xla training passes disagree")
+
+    snap = {n: t.detach().to("cpu", copy=True) for n, t in _named_leaves(params).items()}
+    torch.cuda.reset_peak_memory_stats()
+    step_losses, walls, counts = _micro_steps(trainer, batch, 4, STAGE2_LAUNCHES, "6")
+    wall = walls[2] + walls[3]
+    rows = tcfg.gradient_accumulation_steps * tcfg.model_max_length
+    log(f"[6] micro-step losses {step_losses}")
+    real = tcfg.gradient_accumulation_steps * n_real
+    log(f"[6] second optimizer step: wall {wall:.3f} s, {real / wall:.1f} non-pad tokens/s "
+        f"({real} tokens: 2 micro-steps x {n_real}), {rows / wall:.1f} LM rows/s "
+        f"({rows} rows: 2 micro-steps x {tcfg.model_max_length})")
+    log(f"[6] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if trainer.tx.count != 2:
+        raise AssertionError(f"{trainer.tx.count} optimizer updates, expected 2")
+    _check_changes("6", params, snap, {"lm", "sva", "compressor", "image_newline"},
+                   {"siglip", "dino"}, zero_grad)
+    # a fifth micro-step (it accumulates, no update) under the profiler
+    profile_stage("6", "micro-step 5 under torch.profiler", lambda: trainer.train_step(batch))
+    del trainer, snap, view
+    return params, counts
+
+
+def phase_tower_train(cfg, params):
+    """The stage-2 preset with the towers trainable and the LM frozen: 2
+    optimizer steps of one micro-step each; the tower backward runs K4 (the
+    forward recomputed with lse), K5 and K6.  Frames cut 8 -> 4 -> 2 on
+    running out of memory."""
+    from tdc_video_tpu_torch.train.stages import stage2_video_sft
+    from tdc_video_tpu_torch.train.trainer import Trainer
+
+    tcfg = dataclasses.replace(stage2_video_sft(), unfreeze_mm_vision_tower=True,
+                               freeze_backbone=True, gradient_accumulation_steps=1, max_steps=2,
+                               report_to="none")
+    snap = {n: t.detach().to("cpu", copy=True) for n, t in _named_leaves(params).items()}
+    for n_frames in (TOWER_FRAMES, TOWER_FRAMES // 2, TOWER_FRAMES // 4):
+        for t in _named_leaves(params).values():
+            t.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        trainer = oom = None
+        try:
+            trainer = Trainer(cfg, tcfg, params, total_steps=tcfg.max_steps, device=DEVICE)
+            n_train = sum(t.numel() for t in trainer.tx.params)
+            log(f"[7] {n_frames} frames; trainable {n_train / 1e9:.3f} B params (towers, SVA, "
+                f"compressor, image_newline); LM frozen")
+            batch = train_batch(cfg, n_frames)
+            losses, walls, counts = _micro_steps(trainer, batch, 2, TOWER_LAUNCHES, "7")
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e).splitlines()[0]
+        # out of the handler, the traceback no longer holds the step's tensors
+        trainer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[7] out of memory at {n_frames} frames ({oom}); cut to {n_frames // 2} frames")
+        with torch.no_grad():
+            for n, t in _named_leaves(params).items():
+                t.copy_(snap[n])
+    else:
+        raise AssertionError("the tower-trainable step does not fit at 2 frames")
+    log(f"[7] step walls {[round(w, 3) for w in walls]} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, max_memory_reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+    zero_grad = set()  # after zero_grad every grad is 0: judge the towers by their change
+    _check_changes("7", params, snap, {"siglip", "dino"}, {"lm"}, zero_grad)
+    return n_frames, counts
 
 
 def _leaves(tree):
@@ -379,10 +851,29 @@ def main() -> int:
     T, S = prefill_shape(tdc_llama32_3b(), ByteTokenizer(), QUESTION, N_FRAMES, MAX_NEW_TOKENS)
     log(f"[2] main-path prefill shape T={T} S={S}")
     rows = phase_kernels(T, S)
+    train_rows = phase_train_kernels()
     cfg, params, pred, frames = phase_main_path(rows)
     phase_flash_vs_xla(cfg, params, pred, frames)
     phase_profile(pred, frames)
-    print(json.dumps({"kernels": rows}))
+    del params, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, counts6 = phase_train(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_frames, counts7 = phase_tower_train(cfg, params)
+    # launches of each training kernel on its own path, one micro-step: K5/K6
+    # in the stage-2 step, K4 in the tower-trainable step
+    for r in train_rows:
+        r["launches"] = (counts7 if r["name"] == "full_attention" else counts6)[r["name"]]
+        if r["launches"] <= 0:
+            raise AssertionError(f"kernel {r['name']} was not launched on its path")
+    log(f"[7] tower-trainable step ran at {n_frames} frames")
+    if n_frames != TOWER_FRAMES:  # K4's row at the shape the path ran
+        launches = train_rows[0]["launches"]
+        train_rows[0] = k4_row(n_frames)
+        train_rows[0]["launches"] = launches
+    print(json.dumps({"kernels": rows + train_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

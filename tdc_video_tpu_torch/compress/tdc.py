@@ -1,11 +1,16 @@
 """Temporal Dynamic Context compression (port of tdc_video_tpu/compress/tdc.py,
-visual-only, no remat).
+visual-only).
 
 As in JAX: chunk assignment with cumulative ops over the frame axis, frames
 scattered into a [MAX_CHUNKS+1, chunk_size, P, H] buffer (row MAX_CHUNKS is
 a trash row for padded frames), one batched Q-Former call over every
 (chunk, subsequent frame) pair, then masked emission, the global budget
 clamp and a gather compaction.  `lax.associative_scan(max)` is torch.cummax.
+
+Under autograd the frame scatter (index_put into a zero buffer) and the final
+gather carry gradients to the frame features, as JAX's scatter and gather
+do; a padded frame's slot in the trash row gets the trash row's (unused)
+gradient in both.
 """
 
 from __future__ import annotations
@@ -82,6 +87,7 @@ def compress_video(
     dtype=torch.float32,
     token_valid: Optional[torch.Tensor] = None,  # [P] bool aspect mask
     query_pool: Optional[torch.Tensor] = None,  # [K, P] masked pooling matrix
+    remat: bool = False,  # training: per-layer Q-Former checkpointing
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (visual [max_visual_len, H], n_visual scalar int32)."""
     c = cfg.compression
@@ -147,7 +153,7 @@ def compress_video(
         else:
             ids_b = tmask_b = None
         out = qformer_forward(cfg.qformer, params["qformer"], q_flat, ids_b, tmask_b, enc,
-                              enc_mask, dtype=dtype)  # [B, K, 768]
+                              enc_mask, dtype=dtype, remat=remat)  # [B, K, 768]
         comp = linear(params["vision_proj"], out)  # [B, K, H]
         norm = torch.sqrt(torch.sum(comp.float() ** 2, -1, keepdim=True) + 1e-12)
         comp = comp / norm.to(comp.dtype)

@@ -1,9 +1,15 @@
 """Top-level TDC-Video model: towers -> SVA -> segment -> TDC -> LM (port of
-tdc_video_tpu/model.py, visual-only inference path).
+tdc_video_tpu/model.py, visual only: no audio and no frame_pos).
 
     encode_frames                     towers + SVA + newline        [T, P, H]
     prepare_visual                    segmentation + TDC compression [Vmax, H]
+    prepare_multimodal_inputs         encode + compress + splice     [B, Lmax, H]
     prepare_multimodal_from_features  compression + splice           [B, Lmax, H]
+    tdc_loss                          all of the above + LM CE       scalar
+
+Training remat (JAX's jax.checkpoint) is torch.utils.checkpoint without
+reentrancy: the SVA in chunks of 16 frames, the per-sample segment+compress
+stage, each Q-Former layer and each LM layer.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .compress.assembly import splice_visual_dynamic
 from .compress.tdc import compress_video, init_compressor
@@ -59,12 +66,30 @@ def encode_frames(
     siglip_px: torch.Tensor,  # [T, Hs, Ws, 3] normalized
     dino_px: torch.Tensor,  # [T, Hd, Wd, 3] normalized
     attn_impl: str = "xla",
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (frame_feats [T, P, H_lm], dino_feats [T, 576, C_dino])."""
+    """Returns (frame_feats [T, P, H_lm], dino_feats [T, 576, C_dino]).
+    remat=True (training) runs the SVA in checkpointed chunks of 16 frames,
+    so the backward keeps one chunk's SVA internals at a time (JAX
+    :132-155).  The towers get no checkpoint, as in JAX: frozen, they build
+    no graph at all (their inputs are data)."""
     dt = cfg.dtype
     dino_feats = vit_forward(cfg.dino, params["dino"], dino_px, attn_impl=attn_impl, dtype=dt)
     siglip_feats = vit_forward(cfg.siglip, params["siglip"], siglip_px, attn_impl=attn_impl, dtype=dt)
-    feats = sva_forward(cfg.sva, params["sva"], [siglip_feats, dino_feats])  # [T, 144, H]
+    if remat:
+        CH = 16
+        Tt = siglip_feats.shape[0]
+        pad = (-Tt) % CH
+        sig_p = torch.nn.functional.pad(siglip_feats, (0, 0, 0, 0, 0, pad))
+        dino_p = torch.nn.functional.pad(dino_feats, (0, 0, 0, 0, 0, pad))
+        chunks = [
+            checkpoint(lambda a, b: sva_forward(cfg.sva, params["sva"], [a, b]),
+                       sig_p[c:c + CH], dino_p[c:c + CH], use_reentrant=False)
+            for c in range(0, Tt + pad, CH)
+        ]
+        feats = torch.cat(chunks)[:Tt]  # [T, 144, H]
+    else:
+        feats = sva_forward(cfg.sva, params["sva"], [siglip_feats, dino_feats])  # [T, 144, H]
     T, _, H = feats.shape
     side = cfg.sva.final_side_len
     if cfg.compression.is_image_newline:
@@ -85,13 +110,54 @@ def prepare_visual(
     max_visual_len: int = 4096,
     token_valid: Optional[torch.Tensor] = None,  # [P]
     query_pool: Optional[torch.Tensor] = None,  # [K, P]
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segmentation + TDC compression for ONE video: (visual [Vmax, H], n_visual)."""
     boundary = segment_boundaries(dino_feats, frame_mask, cfg.compression.max_num_segments)
     return compress_video(
         cfg, params["compressor"], frame_feats, frame_mask, boundary, qformer_text_ids,
         qformer_text_mask, max_visual_len=max_visual_len, dtype=cfg.compress_dtype,
-        token_valid=token_valid, query_pool=query_pool,
+        token_valid=token_valid, query_pool=query_pool, remat=remat,
+    )
+
+
+def prepare_multimodal_inputs(
+    cfg: TDCConfig,
+    params: Params,
+    input_ids: torch.Tensor,  # [B, L]; <image> slot already a placeholder id
+    image_pos: torch.Tensor,  # [B]
+    siglip_px: torch.Tensor,  # [B, T, Hs, Ws, 3]
+    dino_px: torch.Tensor,  # [B, T, Hd, Wd, 3]
+    frame_mask: torch.Tensor,  # [B, T]
+    qformer_text_ids: Optional[torch.Tensor],  # [B, Lq]
+    qformer_text_mask: Optional[torch.Tensor],  # [B, Lq]
+    labels: Optional[torch.Tensor] = None,  # [B, L]
+    text_len: Optional[torch.Tensor] = None,  # [B]
+    has_image: Optional[torch.Tensor] = None,  # [B] bool
+    token_valid: Optional[torch.Tensor] = None,  # [B, P]
+    query_pool: Optional[torch.Tensor] = None,  # [B, K, P]
+    max_len: int = 4096,
+    max_visual_len: int = 2048,
+    attn_impl: str = "xla",
+    remat_encode: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Encode every frame of the batch as one tower batch, then compress and
+    splice (JAX :250-341): dict(embeds [B, max_len, H], attn_mask, labels,
+    seq_len)."""
+    if cfg.compression.frame_pos:
+        raise NotImplementedError("frame_pos (get_frame_pos) is not ported")
+    B, T = frame_mask.shape
+    flat_sig = siglip_px.reshape((B * T,) + siglip_px.shape[2:])
+    flat_dino = dino_px.reshape((B * T,) + dino_px.shape[2:])
+    frame_feats, dino_feats = encode_frames(cfg, params, flat_sig, flat_dino, attn_impl=attn_impl,
+                                            remat=remat_encode)
+    P = frame_feats.shape[1]
+    return prepare_multimodal_from_features(
+        cfg, params, input_ids, image_pos, frame_feats.reshape(B, T, P, -1),
+        dino_feats.reshape(B, T, dino_feats.shape[1], -1), frame_mask, qformer_text_ids,
+        qformer_text_mask, labels=labels, text_len=text_len, has_image=has_image,
+        token_valid=token_valid, query_pool=query_pool, max_len=max_len,
+        max_visual_len=max_visual_len, remat_encode=remat_encode,
     )
 
 
@@ -105,15 +171,20 @@ def prepare_multimodal_from_features(
     frame_mask: torch.Tensor,  # [B, T]
     qformer_text_ids: Optional[torch.Tensor],  # [B, Lq]
     qformer_text_mask: Optional[torch.Tensor],
+    labels: Optional[torch.Tensor] = None,  # [B, L]
     text_len: Optional[torch.Tensor] = None,  # [B]
+    has_image: Optional[torch.Tensor] = None,  # [B] bool; False rows splice no visual
     token_valid: Optional[torch.Tensor] = None,  # [B, P]
     query_pool: Optional[torch.Tensor] = None,  # [B, K, P]
     max_len: int = 4096,
     max_visual_len: int = 2048,
+    remat_encode: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Compression + splice over pre-encoded frames.  JAX vmaps over the
     batch; here compression loops over the samples (each has its own
-    segments and chunks) and the splice runs batched."""
+    segments and chunks) and the splice runs batched.  remat_encode=True
+    (training) checkpoints each sample's segment+compress stage, so only its
+    inputs are kept for the backward."""
     B, T = frame_mask.shape
     P = frame_feats.shape[2]
     dev = frame_feats.device
@@ -123,21 +194,53 @@ def prepare_multimodal_from_features(
         K = cfg.compression.context_token_num
         query_pool = torch.from_numpy(adaptive_pool_matrix(P, K)).to(dev)[None].expand(B, K, P)
 
+    def one(ff, df, fm, tid, tmask, tv, qp):
+        return prepare_visual(cfg, params, ff, df, fm, tid, tmask, max_visual_len=max_visual_len,
+                              token_valid=tv, query_pool=qp, remat=remat_encode)
+
     vis, nvis = [], []
     for b in range(B):
-        v, nv = prepare_visual(
-            cfg, params, frame_feats[b], dino_feats[b], frame_mask[b],
-            None if qformer_text_ids is None else qformer_text_ids[b],
-            None if qformer_text_mask is None else qformer_text_mask[b],
-            max_visual_len=max_visual_len, token_valid=token_valid[b], query_pool=query_pool[b],
-        )
+        args = (frame_feats[b], dino_feats[b], frame_mask[b],
+                None if qformer_text_ids is None else qformer_text_ids[b],
+                None if qformer_text_mask is None else qformer_text_mask[b],
+                token_valid[b], query_pool[b])
+        v, nv = checkpoint(one, *args, use_reentrant=False) if remat_encode else one(*args)
         vis.append(v)
         nvis.append(nv)
     text_embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype)
     visual = torch.stack(vis).to(text_embeds.dtype)
     if text_len is None:
         text_len = torch.full((B,), input_ids.shape[1], dtype=torch.int32, device=dev)
-    embeds, attn_mask, _, seq_len = splice_visual_dynamic(
-        text_embeds, image_pos, visual, torch.stack(nvis), max_len, text_len=text_len
+    embeds, attn_mask, out_labels, seq_len = splice_visual_dynamic(
+        text_embeds, image_pos, visual, torch.stack(nvis), max_len, labels=labels,
+        text_len=text_len, has_image=has_image,
     )
-    return {"embeds": embeds, "attn_mask": attn_mask, "labels": None, "seq_len": seq_len}
+    return {"embeds": embeds, "attn_mask": attn_mask, "labels": out_labels, "seq_len": seq_len}
+
+
+def tdc_loss(
+    cfg: TDCConfig,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    max_len: int = 4096,
+    max_visual_len: int = 2048,
+    attn_impl: str = "xla",
+    remat: bool = True,
+    loss_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Training loss for a multimodal batch (JAX :485-535): encode, compress,
+    splice, LM cross-entropy.  The audio keys of the JAX batch are not
+    ported and raise."""
+    audio = [k for k in batch if k.startswith("audio_")]
+    if audio:
+        raise NotImplementedError(f"audio inputs are not ported: {audio}")
+    mm = prepare_multimodal_inputs(
+        cfg, params, batch["input_ids"], batch["image_pos"], batch["siglip_px"],
+        batch["dino_px"], batch["frame_mask"], batch.get("qformer_text_ids"),
+        batch.get("qformer_text_mask"), labels=batch["labels"], text_len=batch.get("text_len"),
+        has_image=batch.get("has_image"), token_valid=batch.get("token_valid"),
+        query_pool=batch.get("query_pool"), max_len=max_len, max_visual_len=max_visual_len,
+        attn_impl=attn_impl, remat_encode=remat,
+    )
+    return lm_mod.lm_loss(cfg.lm, params["lm"], mm["embeds"], mm["labels"], mm["attn_mask"],
+                          attn_impl=attn_impl, remat=remat, dtype=cfg.dtype, loss_chunk=loss_chunk)

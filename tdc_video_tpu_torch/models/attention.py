@@ -3,8 +3,9 @@
 
 The JAX rule is kept with "on a TPU" read as "on a CUDA tensor": impl="flash"
 sends T >= 128 causal or maskless self-attention to ops/flash_attention.py,
-which launches the kernel the JAX package runs on a TPU for those shapes;
-everything else (decode steps, Q-Former, SVA, CPU tensors) goes to `sdpa`.
+which launches the kernel the JAX package runs on a TPU for those shapes,
+with its custom VJP (so the flash path carries gradients); everything else
+(decode steps, Q-Former, SVA, CPU tensors) goes to `sdpa`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,13 @@ from typing import Optional
 import torch
 
 from .layers import sdpa
+
+
+def default_attn_impl(device) -> str:
+    """Device default: the CUDA kernels (forward and backward) for a CUDA
+    device, plain attention otherwise (JAX: "flash" on a TPU, "xla"
+    elsewhere)."""
+    return "flash" if torch.device(device).type == "cuda" else "xla"
 
 
 def _check_causal_mask(mask: torch.Tensor, T: int, S: int) -> None:
@@ -51,8 +59,5 @@ def attention(
     if impl == "flash" and on_card and q.shape[1] >= 128 and (causal or mask is None):
         from ..ops.flash_attention import flash_attention
 
-        try:
-            return flash_attention(q, k, v, scale=scale, causal=causal)
-        except NotImplementedError:
-            pass  # raised by the dispatch before any kernel runs
+        return flash_attention(q, k, v, scale=scale, causal=causal)
     return sdpa(q, k, v, mask=mask, scale=scale)

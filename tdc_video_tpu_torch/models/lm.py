@@ -1,18 +1,25 @@
 """Decoder-only language model core, Qwen2 / Llama-3.x (port of
 tdc_video_tpu/models/lm.py, float path with a bf16 KV cache).
 
-Layers are stacked on axis 0 and run in a Python loop.  The KV cache is a
-fixed-capacity buffer with a validity mask and per-sample lengths, as in
-JAX; unlike JAX it is updated in place (prefill and decode_step write the
-new keys/values into the cache tensors they are given and return the same
-dict), which saves a copy of the whole cache per step.
+Layers are stacked on axis 0 and run in a Python loop; `layers` may also be
+a list of per-layer trees (the trainer's gradient views, train/step.py).  The
+KV cache is a fixed-capacity buffer with a validity mask and per-sample
+lengths, as in JAX; unlike JAX it is updated in place (prefill and
+decode_step write the new keys/values into the cache tensors they are given
+and return the same dict), which saves a copy of the whole cache per step.
+
+Training: `lm_forward` and `lm_loss` (chunked cross-entropy), with
+`remat=True` checkpointing each layer (torch.utils.checkpoint in place of
+jax.checkpoint).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LMConfig
 from ..device import resolve_device
@@ -144,17 +151,23 @@ def lm_backbone(
     attn_impl: str = "xla",
     dtype=torch.bfloat16,
     causal: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Run the decoder stack; returns (final hidden [B,T,H], cache)."""
+    """Run the decoder stack; returns (final hidden [B,T,H], cache).
+    remat=True (training) checkpoints each layer: the backward keeps only the
+    layer inputs and recomputes each layer's internals (JAX :241-242)."""
     x = inputs_embeds.to(dtype)
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device)
     cos, sin = rope_cos_sin(positions, inv_freq)
+    layer_fn = functools.partial(_layer_forward, cfg)
+    if remat:
+        layer_fn = functools.partial(checkpoint, layer_fn, use_reentrant=False)
     layers = params["layers"]
     for i in range(cfg.num_layers):
-        lp = _tree_index(layers, i)
+        lp = layer_params(layers, i)
         ck = cache["k"][i] if cache is not None else None
         cv = cache["v"][i] if cache is not None else None
-        x = _layer_forward(cfg, lp, x, cos, sin, attn_mask, ck, cv, write_pos, attn_impl, causal)
+        x = layer_fn(lp, x, cos, sin, attn_mask, ck, cv, write_pos, attn_impl, causal)
     return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
 
 
@@ -162,6 +175,11 @@ def _tree_index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _tree_index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def layer_params(layers, i: int):
+    """Layer i's params from a stacked tree or from a list of per-layer trees."""
+    return layers[i] if isinstance(layers, list) else _tree_index(layers, i)
 
 
 def embed_tokens(cfg: LMConfig, params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16):
@@ -175,6 +193,89 @@ def lm_head(cfg: LMConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor
         w = params["embed"]["embedding"].to(hidden.dtype)
         return dot_f32(hidden, w.T)
     return dot_f32(hidden, params["lm_head"]["w"].to(hidden.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Training / scoring
+# ---------------------------------------------------------------------------
+
+
+def lm_forward(
+    cfg: LMConfig,
+    params: Params,
+    input_ids: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,  # [B, T] bool, True = valid
+    positions: Optional[torch.Tensor] = None,
+    attn_impl: str = "xla",
+    remat: bool = False,
+    dtype=torch.bfloat16,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Full-sequence causal forward (training / scoring): f32 logits [B,T,V],
+    or the final hidden states when return_hidden (the chunked loss applies
+    the head itself).  JAX's seq_axis (sequence sharding) and act_quant
+    (int8 activations) are not ported."""
+    if inputs_embeds is None:
+        inputs_embeds = embed_tokens(cfg, params, input_ids, dtype)
+    B, T, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    if attention_mask is None:
+        attention_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    if positions is None:
+        positions = (torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1).clamp_min(0)
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+    mask = causal[None, None] & attention_mask.to(torch.bool)[:, None, None, :]
+    hidden, _ = lm_backbone(cfg, params, inputs_embeds, positions, mask, attn_impl=attn_impl,
+                            dtype=dtype, causal=True, remat=remat)
+    if return_hidden:
+        return hidden
+    return lm_head(cfg, params, hidden)
+
+
+def _token_ll(cfg: LMConfig, params: Params, hidden, targets, valid) -> torch.Tensor:
+    """Sum over valid positions of log p(target): f32 head and log-softmax."""
+    logp = torch.log_softmax(lm_head(cfg, params, hidden).float(), dim=-1)
+    ll = torch.take_along_dim(logp, targets[..., None].long(), dim=-1)[..., 0]
+    return (ll * valid).sum()
+
+
+def lm_loss(
+    cfg: LMConfig,
+    params: Params,
+    inputs_embeds: torch.Tensor,
+    labels: torch.Tensor,  # [B, T], IGNORE_INDEX = ignored
+    attention_mask: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    attn_impl: str = "xla",
+    remat: bool = True,
+    dtype=torch.bfloat16,
+    loss_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Shifted cross-entropy over valid label positions (JAX :362-443).
+
+    loss_chunk: the head and the log-softmax run over chunks of this many
+    positions, each chunk checkpointed, so the backward recomputes a chunk's
+    [B, C, V] f32 logits instead of holding the full [B, T, V] (4.2 GB per
+    buffer at 8k tokens and a 128k vocabulary)."""
+    targets = labels[:, 1:]
+    valid = targets >= 0
+    safe_targets = torch.where(valid, targets, 0).clamp(0, cfg.vocab_size - 1)
+    denom = valid.sum().clamp_min(1)
+    hidden = lm_forward(cfg, params, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
+                        positions=positions, attn_impl=attn_impl, remat=remat, dtype=dtype,
+                        return_hidden=True)
+    h = hidden[:, :-1]
+    vf = valid.to(torch.float32)
+    if loss_chunk is None:
+        return -_token_ll(cfg, params, h, safe_targets, vf) / denom
+    C = int(loss_chunk)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, h.shape[1], C):
+        sl = slice(c0, c0 + C)
+        total = total + checkpoint(_token_ll, cfg, params, h[:, sl], safe_targets[:, sl], vf[:, sl],
+                                   use_reentrant=False)
+    return -total / denom
 
 
 # ---------------------------------------------------------------------------

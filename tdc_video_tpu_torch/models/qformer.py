@@ -1,6 +1,6 @@
 """TDC Q-Former: BERT with interleaved cross-attention, the compressor
-(port of tdc_video_tpu/models/qformer.py, no remat).  Its attention is the
-plain `sdpa` path, as in JAX."""
+(port of tdc_video_tpu/models/qformer.py).  Its attention is the plain
+`sdpa` path, as in JAX."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import QFormerConfig
 from ..device import resolve_device
@@ -86,8 +87,10 @@ def qformer_forward(
     encoder_hidden: torch.Tensor,  # [B, S, E]
     encoder_mask: Optional[torch.Tensor] = None,  # [B, S] bool
     dtype=torch.float32,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Returns hidden states of the query positions [B, Q, H]."""
+    """Returns hidden states of the query positions [B, Q, H].  remat=True
+    (training) checkpoints each layer, as JAX does."""
     B, Q, _ = query_embeds.shape
     emb = params["embeddings"]
     x = query_embeds.to(dtype)
@@ -103,14 +106,17 @@ def qformer_forward(
         key_mask = torch.ones((B, Q), dtype=torch.bool, device=dev)
     x = layer_norm(emb["norm"], x, cfg.layer_norm_eps)
     enc = encoder_hidden.to(dtype)
-    for layer in params["layers"]:
+
+    def one_layer(layer, x):
         x = _attn_block(cfg, layer["self_attn"], x, x, key_mask)
         q_part, t_part = x[:, :Q], x[:, Q:]
         if layer["cross_attn"] is not None:
             q_part = _attn_block(cfg, layer["cross_attn"], q_part, enc, encoder_mask)
         q_part = _ffn_block(cfg, layer["ffn_query"], q_part)
         if x.shape[1] > Q:
-            x = torch.cat([q_part, _ffn_block(cfg, layer["ffn"], t_part)], dim=1)
-        else:
-            x = q_part
+            return torch.cat([q_part, _ffn_block(cfg, layer["ffn"], t_part)], dim=1)
+        return q_part
+
+    for layer in params["layers"]:
+        x = checkpoint(one_layer, layer, x, use_reentrant=False) if remat else one_layer(layer, x)
     return x[:, :Q]

@@ -137,7 +137,7 @@ def vit_forward(
     dtype=torch.float32,
 ) -> torch.Tensor:
     """Returns patch features [B, N (or interp_tokens), C]; CLS dropped."""
-    from .lm import _tree_index
+    from .lm import layer_params
 
     x = patchify(pixels.to(dtype), cfg.patch_size)
     x = linear(params["patch_embed"], x)
@@ -147,7 +147,7 @@ def vit_forward(
         x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)[None]
     for i in range(cfg.num_layers):
-        x = _layer_forward(cfg, _tree_index(params["layers"], i), x, attn_impl)
+        x = _layer_forward(cfg, layer_params(params["layers"], i), x, attn_impl)
     # both HF towers layer-norm the sequence output
     x = layer_norm(params["final_norm"], x, cfg.layer_norm_eps)
     if cfg.use_cls_token:

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes).  Libraries go to `tdc_video_tpu_torch/_build/`, named by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one is
-reused.  `build_all` starts one nvcc per source, all at once.
+minutes).  Forward libraries export `tdc_<name>_fwd`, backward libraries
+`tdc_<name>_bwd`, each with its own signature.  Libraries go to
+`tdc_video_tpu_torch/_build/`, named by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.  `build_all` starts one nvcc per source, all at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
 host may have no nvcc.
@@ -24,7 +25,19 @@ from typing import Dict, List, Tuple
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("flash_kernel", "full_attention_nhd", "full_attention_nhd_seqq")
+SOURCES = ("flash_kernel", "full_attention_nhd", "full_attention_nhd_seqq", "full_attention",
+           "flash_dq_kernel", "flash_dkv_kernel")
+BACKWARD = ("flash_dq_kernel", "flash_dkv_kernel")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# q, k, v, o, lse (or None), is_f32, B, T, S, Hq, Hkv, D, kv_len, 12 strides
+# (q, k, v, o), causal, scale, stream
+FWD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                ctypes.POINTER(ctypes.c_int64), _I, ctypes.c_float, _P]
+# q, k, v, dO, lse, delta, dQ, dK, dV (unused ones None), is_f32, B, T, S, Hq,
+# Hkv, D, kv_len, 21 strides (q, k, v, dO, dQ, dK, dV), causal, scale, stream
+BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                ctypes.POINTER(ctypes.c_int64), _I, ctypes.c_float, _P]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -83,21 +96,17 @@ def build_all(names=SOURCES) -> Tuple[Dict[str, Path], float, str]:
     return paths, time.perf_counter() - t0, log
 
 
+def entry_point(name: str) -> str:
+    return f"tdc_{name}_{'bwd' if name in BACKWARD else 'fwd'}"
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use."""
     if name not in _libs:
         paths, _, _ = build_all((name,))
         lib = ctypes.CDLL(str(paths[name]))
-        fn = getattr(lib, f"tdc_{name}_fwd")
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,  # q, k, v, o, lse (or None)
-            ctypes.c_int,  # is_f32
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int,  # B, T, S, Hq, Hkv, D, kv_len
-            ctypes.POINTER(ctypes.c_int64),  # 12 strides
-            ctypes.c_int, ctypes.c_float, ctypes.c_void_p,  # causal, scale, stream
-        ]
+        fn = getattr(lib, entry_point(name))
+        fn.argtypes = BWD_ARGTYPES if name in BACKWARD else FWD_ARGTYPES
         fn.restype = ctypes.c_int
         lib.tdc_error_string.argtypes = [ctypes.c_int]
         lib.tdc_error_string.restype = ctypes.c_char_p

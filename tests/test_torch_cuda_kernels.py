@@ -8,7 +8,10 @@ that has only PyTorch:
 
 (--noconftest: tests/conftest.py configures JAX.)  Tolerances: bf16 3e-2
 (kernel and plain version round P and O to bf16, at running and final row
-maxima), f32 1e-4 (summation order only), f32 lse 1e-3.
+maxima), f32 1e-4 (summation order only), f32 lse 1e-3.  Backward kernels
+against their plain versions: bf16 2e-2 of the largest reference element
+(dQ, dK and dV are each rounded to bf16 once, from f32 sums taken in another
+order over P and dS rounded at the same places), f32 1e-4 of it.
 """
 
 import math
@@ -27,7 +30,12 @@ CASES = {
     "flash_kernel": (2, 145, 328, 4, 2, 128),
     "full_attention_nhd": (2, 145, 145, 4, 4, 64),
     "full_attention_nhd_seqq": (2, 145, 145, 16, 16, 72),
+    "full_attention": (2, 145, 145, 4, 2, 72),  # K4: GQA, D = 72 padded to 80
 }
+
+# (B, T, Hq, Hkv, D, causal) for K5/K6: the LM's causal GQA at D = 128 and
+# both tower head dims, ragged tiles everywhere
+BWD_CASES = [(1, 200, 6, 2, 128, True), (2, 145, 4, 4, 64, False), (2, 145, 4, 4, 72, False)]
 
 
 @pytest.fixture
@@ -53,6 +61,10 @@ def test_kernel_matches_plain(cuda, name, dtype, tol):
     if name == "flash_kernel":
         out, lse = tfa.flash_kernel(q, k, v, scale, True)
         ref, lse_ref = tfa.flash_attention_plain(q, k, v, scale, True)
+    elif name == "full_attention":
+        out, lse = tfa.full_attention(q, k, v, scale)
+        ref, lse_ref = tfa.full_attention_plain(q, k, v, scale)
+    if name in ("flash_kernel", "full_attention"):
         torch.cuda.synchronize()
         assert float((lse - lse_ref).abs().max()) <= 1e-3
     else:
@@ -75,7 +87,8 @@ def test_attention_dispatch_launches_on_card(cuda):
     attention(q, k, v, impl="flash", causal=True)
     attention(q[:, :100], k[:, :100], v[:, :100], impl="flash")
     assert tfa.launches == {"flash_kernel": 1, "full_attention_nhd": 1,
-                            "full_attention_nhd_seqq": 0}
+                            "full_attention_nhd_seqq": 0, "full_attention": 0,
+                            "flash_dq_kernel": 0, "flash_dkv_kernel": 0}
 
 
 def test_bf16_kernel_rejects_misaligned_operands(cuda):
@@ -88,3 +101,83 @@ def test_bf16_kernel_rejects_misaligned_operands(cuda):
     with pytest.raises(ValueError, match="aligned"):
         tfa.full_attention_nhd(shifted, k, v, 0.125)
     assert tfa.launches["full_attention_nhd"] == 0
+
+
+def _bwd_inputs(seed, B, T, Hq, Hkv, D, causal, dtype, valid=None):
+    """q, k, v, dO and the plain forward's o, lse and delta; dO rows at or
+    past `valid` are zero (right padding)."""
+    q, k, v = _qkv(seed, B, T, T, Hq, Hkv, D, dtype)
+    do = _qkv(seed + 1, B, T, T, Hq, Hq, D, dtype)[0]
+    if valid is not None:
+        do[:, valid:] = 0
+    o, lse = tfa.flash_attention_plain(q, k, v, 1 / math.sqrt(D), causal)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
+    return q, k, v, do, lse, delta
+
+
+def _close(out, ref, rel):
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= rel * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_kernels_match_plain(cuda, case, dtype, rel):
+    B, T, Hq, Hkv, D, causal = case
+    args = _bwd_inputs(9, B, T, Hq, Hkv, D, causal, dtype)
+    scale = 1 / math.sqrt(D)
+    tfa.reset_launches()
+    dq = tfa.flash_dq_kernel(*args, scale, causal)
+    dk, dv = tfa.flash_dkv_kernel(*args, scale, causal)
+    dq_ref = tfa.flash_dq_plain(*args, scale, causal)
+    dk_ref, dv_ref = tfa.flash_dkv_plain(*args, scale, causal)
+    torch.cuda.synchronize()
+    assert tfa.launches["flash_dq_kernel"] == 1 and tfa.launches["flash_dkv_kernel"] == 1
+    _close(dq, dq_ref, rel)
+    _close(dk, dk_ref, rel)
+    _close(dv, dv_ref, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_padded_rows_zero_dq_and_no_dkv(cuda, dtype):
+    """Rows whose dO is zero get exactly zero dQ and add nothing to dK/dV:
+    the kernels' dK/dV equal those of the valid rows alone."""
+    B, T, H, D, valid = 1, 200, 2, 64, 150
+    q, k, v, do, lse, delta = _bwd_inputs(10, B, T, H, H, D, True, dtype, valid=valid)
+    scale = 1 / math.sqrt(D)
+    dq = tfa.flash_dq_kernel(q, k, v, do, lse, delta, scale, True)
+    dk, dv = tfa.flash_dkv_kernel(q, k, v, do, lse, delta, scale, True)
+    part = [t[:, :valid].contiguous() for t in (q, k, v, do)]
+    sub = [t[:, :, :valid].contiguous() for t in (lse, delta)]
+    dk_v, dv_v = tfa.flash_dkv_kernel(*part, *sub, scale, True)
+    torch.cuda.synchronize()
+    assert float(dq[:, valid:].abs().max()) == 0.0
+    assert float(dk[:, valid:].abs().max()) == 0.0 and float(dv[:, valid:].abs().max()) == 0.0
+    assert torch.equal(dk[:, :valid], dk_v) and torch.equal(dv[:, :valid], dv_v)
+
+
+@pytest.mark.parametrize("causal,shape", [(True, (1, 256, 6, 2, 128)), (False, (2, 145, 4, 4, 64)),
+                                          (False, (2, 145, 16, 16, 72)), (False, (2, 145, 4, 2, 64))])
+def test_attention_flash_gradients_on_card(cuda, causal, shape):
+    """attention(impl="flash") on CUDA tensors carries gradients through the
+    kernels (K1/K4 or K2/K3 forward, K5 and K6 backward), and they equal the
+    same function's gradients through the plain versions on the CPU (f32)."""
+    from tdc_video_tpu_torch.models.attention import attention
+
+    B, T, Hq, Hkv, D = shape
+    q, k, v = _qkv(11, B, T, T, Hq, Hkv, D, torch.float32)
+    w = _qkv(12, B, T, T, Hq, Hq, D, torch.float32)[0]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        tfa.reset_launches()
+        if dev == "cuda":
+            o = attention(*leaves, impl="flash", causal=causal)
+        else:  # the CPU dispatch goes to sdpa; call the kernels' plain path
+            o = tfa.flash_attention(*leaves, causal=causal)
+        (o * w.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+        if dev == "cuda":
+            assert tfa.launches["flash_dq_kernel"] == 1 and tfa.launches["flash_dkv_kernel"] == 1
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))

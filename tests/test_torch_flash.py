@@ -118,11 +118,14 @@ def test_dispatch_picks_the_jax_kernel(monkeypatch, T, S, Hq, Hkv, D, causal):
 
 
 def test_k4_shapes_go_to_sdpa_on_the_card_path():
-    """K4 is not ported: its shapes raise NotImplementedError in the dispatch
-    (before any kernel) and models/attention.py uses sdpa instead."""
+    """K4 is ported: maskless K4 shapes now run K4 (its plain version on the
+    CPU) and agree with the JAX dispatch.  Only a non-causal call with a
+    mask still raises NotImplementedError in the dispatch (before any
+    kernel), and models/attention.py sends those to sdpa, as JAX does."""
     q, k, v = _qkv(4, 1, 128, 128, 4, 2, 64)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(t(q), t(k), t(v), causal=False)
+    assert tfa.select_kernel(128, 128, 4, 2, 64, False) == "full_attention"
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False)
+    close(tfa.flash_attention(t(q), t(k), t(v), causal=False), ref, TOL, TOL)
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(t(q), t(k), t(v), mask=torch.ones(1, 1, 128, 128, dtype=torch.bool),
                             causal=False)
@@ -132,8 +135,12 @@ def test_cpu_wrappers_use_plain_versions_and_count_nothing():
     tfa.reset_launches()
     q, k, v = _qkv(5, 1, 130, 130, 4, 4, 64)
     tfa.full_attention_nhd(t(q), t(k), t(v), 0.125)
-    tfa.flash_kernel(t(q), t(k), t(v), 0.125, True)
-    assert all(n == 0 for n in tfa.launches.values())
+    o, lse = tfa.flash_kernel(t(q), t(k), t(v), 0.125, True)
+    tfa.full_attention(t(q), t(k), t(v), 0.125)
+    delta = torch.zeros_like(lse)
+    tfa.flash_dq_kernel(t(q), t(k), t(v), o, lse, delta, 0.125, True)
+    tfa.flash_dkv_kernel(t(q), t(k), t(v), o, lse, delta, 0.125, True)
+    assert len(tfa.launches) == 6 and all(n == 0 for n in tfa.launches.values())
     # CPU attention(impl="flash") follows JAX on a non-TPU backend: sdpa
     out = attention(t(q), t(k), t(v), impl="flash")
     from tdc_video_tpu.models.layers import sdpa

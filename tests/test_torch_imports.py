@@ -58,3 +58,22 @@ def test_smoke_script_fails_without_cuda():
                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_train_modules_import_and_trainer_needs_cuda():
+    """The training slice's modules import without JAX (covered above) and
+    the Trainer, an entry point, raises without CUDA unless given the CPU."""
+    from tdc_video_tpu_torch.data import preprocess  # noqa: F401
+    from tdc_video_tpu_torch.train import stages, step, trainer  # noqa: F401
+
+    assert set(stages.STAGES) == {1, 2, 3}
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from tdc_video_tpu_torch.config import tdc_tiny
+    from tdc_video_tpu_torch.model import init_tdc
+
+    params = init_tdc(tdc_tiny(), torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trainer.Trainer(tdc_tiny(), trainer.TrainConfig(), params, total_steps=1)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        trainer.Trainer(tdc_tiny(), stages.stage3_audio_lora(), params, total_steps=1, device="cpu")

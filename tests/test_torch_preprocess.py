@@ -1,5 +1,6 @@
-"""Port parity: on-device frame preprocessing (data/images.py) and the
-token-grid resize (models/vit.py) against jax.image.resize.
+"""Port parity: on-device frame preprocessing (data/images.py), the
+token-grid resize (models/vit.py) against jax.image.resize, and the chat
+tokenization with prompt-masked labels (data/preprocess.py).
 
 jax.image.resize "cubic" with antialias is Keys cubic (a = -0.5) with the
 kernel widened by 1/scale when downsampling, which is not torch's bicubic;
@@ -12,11 +13,13 @@ import pytest
 
 from tdc_video_tpu import config as jc
 from tdc_video_tpu.data import images as jimg
+from tdc_video_tpu.data import preprocess as jpre
 from tdc_video_tpu.models import vit as jv
 from tdc_video_tpu_torch import config as tc
 from tdc_video_tpu_torch.data import images as timg
+from tdc_video_tpu_torch.data import preprocess as tpre
 from tdc_video_tpu_torch.models import vit as tv
-from torch_parity import close, t
+from torch_parity import StubTokenizer, close, t
 
 
 @pytest.mark.parametrize("n_in,n_out", [(640, 384), (640, 378), (100, 56), (56, 100)])
@@ -56,3 +59,34 @@ def test_pad_frames(n):
 def test_bilinear_resize_tokens(src, dst):
     x = np.random.default_rng(2).normal(size=(2, src * src, 5)).astype(np.float32)
     close(tv.bilinear_resize_tokens(t(x), src, dst), jv.bilinear_resize_tokens(jnp.asarray(x), src, dst))
+
+
+_CONVS = [
+    [{"from": "human", "value": "<image>\nWhat happens?"}, {"from": "gpt", "value": "A cat jumps."}],
+    [{"role": "system", "content": "ignored"}, {"role": "user", "content": "Hi <image> there"},
+     {"role": "assistant", "content": "Hello."}, {"role": "user", "content": "More?"},
+     {"role": "assistant", "content": "No."}],
+    [{"from": "human", "value": "Text only."}, {"from": "gpt", "value": "Sure."}],
+]
+
+
+@pytest.mark.parametrize("version", ["qwen", "llama3_2"])
+@pytest.mark.parametrize("has_image", [True, False])
+def test_preprocess_and_pack_text(version, has_image):
+    """preprocess (assistant-only labels, <image> sentinels, Q-Former
+    prompts) and pack_text (right padding, image slot, labels) agree with
+    the JAX package token for token."""
+    tok = StubTokenizer()
+    ref = jpre.preprocess(_CONVS, tok, version, has_image=has_image)
+    out = tpre.preprocess(_CONVS, tok, version, has_image=has_image)
+    assert out == ref
+    # labels keep assistant text and structural specials only
+    for ids, labels in zip(out["input_ids"], out["labels"]):
+        assert len(ids) == len(labels)
+        assert any(lab == -100 for lab in labels) and any(lab >= 0 for lab in labels)
+    for max_len in (40, 160):  # truncating and padding
+        a = tpre.pack_text(out["input_ids"], out["labels"], max_len, pad_id=0)
+        b = jpre.pack_text(ref["input_ids"], ref["labels"], max_len, pad_id=0)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
