@@ -7,14 +7,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. device and build: the card's name and power limit, the CUDA version, and
    an nvcc build of all six kernel libraries from tdc_video_tpu_torch/csrc/
    (one nvcc per source, all started together), with ptxas's registers and
-   spills;
+   spills (the log each library was built with); the backward kernels K5
+   and K6 must spill nothing, ptxas must not serialize their wgmma (warning
+   C7512), and cuobjdump must find HGMMA (wgmma) instructions in each of
+   their bf16 kernels;
 2. each kernel against its plain PyTorch version on the card, at its paths'
    shapes in bf16 (and a small f32 case), with error, time, the plain
    version's time, a PyTorch yardstick the port never calls (one
    F.scaled_dot_product_attention call for the forward kernels; its
    backward, forward+backward less forward, for K5 and K6) and the least
-   time the card could take; K5 and K6 are held row by row (each query's dQ,
-   each key's dK and dV) at the stage-2 LM shape and both tower shapes;
+   time the card could take; K1 also at the stage-2 LM shape (T = S =
+   8192), its o held row by row (each query's o) at both shapes; K5 and K6
+   are held row by row (each query's dQ, each key's dK and dV) at the
+   stage-2 LM shape and both tower shapes, and timed as a pair against the
+   SDPA backward;
 3. the serving path: TDC-Llama3.2-3B at full width and depth with random
    weights from a seed, answering one question about 16 synthetic 360x640
    frames through TDCPredictor.answer, with the kernels' launch counters set
@@ -49,6 +55,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -79,12 +86,12 @@ LOGIT_ATOL = 0.25
 QUESTION = "What happens in this video? Answer briefly."
 N_FRAMES, FRAME_H, FRAME_W = 16, 360, 640
 MAX_NEW_TOKENS = 16
-# backward kernels vs plain, bf16: dQ, dK, dV are each rounded to bf16 once
-# from f32 sums taken in another order over P and dS rounded at the same
-# places.  Held per row (_compare_rows).  A late causal row that skipped one
-# 64-wide tile of its ~T random terms would move by ~sqrt(64 / T) of its
-# norm, 9% at T=8192
-BWD_ROW_RTOL = 2e-2
+# K1's o and the backward kernels' dQ, dK, dV vs plain, bf16: each rounded to
+# bf16 once from f32 sums taken in another order over P (and dS) rounded at
+# the same places or at another row maximum.  Held per row (_compare_rows).
+# A late causal row that skipped one 64-wide tile of its ~T random terms
+# would move by ~sqrt(64 / T) of its norm, 9% at T=8192
+ROW_RTOL = 2e-2
 TRAIN_T = 8192  # stage-2 model_max_length
 # training shapes: stage 2 at model_max_length tokens; the tower-trainable
 # step's frame count (phase 7), which the K4-K6 tower timings use
@@ -117,6 +124,26 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def ptxas_report(lib: str):
+    """One library's nvcc -Xptxas -v output: (source name, registers of each
+    bf16 kernel, their spill-store bytes, the bf16 kernels whose wgmma ptxas
+    serialized (warning C7512; a warning that names no function counts))."""
+    name = lib.split()[0][:-len(".cu")]
+    regs, spills, serialized, entry = [], 0, [], ""
+    for line in lib.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "(C7512)" in line or ("wgmma" in line and "serialized" in line):
+            fn = re.search(r"function '(\w+)'", line)
+            if fn is None or "bf16" in fn.group(1):
+                serialized.append(fn.group(1) if fn else line.strip())
+        elif "bf16" in entry and "spill stores" in line:
+            spills += int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif "bf16" in entry and "registers" in line:
+            regs.append(int(re.search(r"Used (\d+) registers", line).group(1)))
+    return name, regs, spills, serialized
+
+
 def phase_device_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -129,18 +156,27 @@ def phase_device_build():
 
     paths, secs, out = build.build_all()
     log(f"[1] kernels built in {secs:.2f} s: {', '.join(p.name for p in paths.values())}")
-    # ptxas -v: registers and spill bytes of each library's bf16 kernels
+    # ptxas -v (the log each library was built with)
     for lib in out.split("--- nvcc ")[1:]:
-        regs, spills, entry = [], 0, ""
-        for line in lib.splitlines():
-            if "Compiling entry function" in line:
-                entry = line
-            elif "bf16" in entry and "spill stores" in line:
-                spills += int(re.search(r"(\d+) bytes spill stores", line).group(1))
-            elif "bf16" in entry and "registers" in line:
-                regs.append(int(re.search(r"Used (\d+) registers", line).group(1)))
-        log(f"[1] ptxas {lib.split()[0]}: bf16 kernels use {min(regs)}-{max(regs)} registers, "
-            f"{spills} bytes of spill stores")
+        name, regs, spills, serialized = ptxas_report(lib)
+        log(f"[1] ptxas {name}.cu: bf16 kernels use {min(regs)}-{max(regs)} registers, "
+            f"{spills} bytes of spill stores, {len(serialized)} with serialized wgmma")
+        if name in build.BACKWARD and (spills or serialized):
+            raise AssertionError(f"{name}: the wgmma kernels spill {spills} bytes; "
+                                 f"ptxas serialized the wgmma of {serialized}")
+    # the backward kernels run on wgmma: HGMMA instructions in their bf16
+    # kernels' machine code
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc_path()),
+                                                         "cuobjdump")
+    for name in build.BACKWARD:
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)[1:]
+        hgmma = {f.split("\n", 1)[0]: f.count("HGMMA.") for f in funcs if "bf16" in f.split("\n", 1)[0]}
+        log(f"[1] cuobjdump {name}: {sum(hgmma.values())} HGMMA instructions in {len(hgmma)} bf16 "
+            f"kernels (fewest {min(hgmma.values(), default=0)})")
+        if not hgmma or min(hgmma.values()) == 0:
+            raise AssertionError(f"{name}: a bf16 kernel has no HGMMA instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +221,60 @@ def _compare(name, out, ref, atol, rtol):
     return max_abs
 
 
+def _fwd_row(fa, rnd, name, replaces, dims, causal):
+    """One forward kernel (K1-K3) against its plain version at `dims` = (B,
+    T, S, Hq, Hkv, D), timed beside the plain version and SDPA; returns its
+    entry of the kernels line."""
+    B, Tq, Sk, Hq, Hkv, D = dims
+    shape = f"q [{B}, {Tq}, {Hq}, {D}], kv [{B}, {Sk}, {Hkv}, {D}]"
+    assert fa.select_kernel(Tq, Sk, Hq, Hkv, D, causal) == name
+    scale = 1.0 / math.sqrt(D)
+    if name == "flash_kernel":
+        q, k, v = rnd(B, Tq, Hq, D), rnd(B, Sk, Hkv, D), rnd(B, Sk, Hkv, D)
+        kern = lambda: fa.flash_kernel(q, k, v, scale, True)
+        plain = lambda: fa.flash_attention_plain(q, k, v, scale, True)
+        lib = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :Tq].transpose(1, 2), v[:, :Tq].transpose(1, 2),
+            is_causal=True, scale=scale, enable_gqa=True)
+        pairs = Tq * (Tq + 1) // 2  # top-left causal: keys < T only
+        kv_rows = min(Sk, Tq)
+        out_bytes = B * Tq * Hq * D * 2 + B * Hq * Tq * 4  # o + f32 lse
+    else:
+        # packed [B, N, H*D] projections viewed as [B, N, H, D]
+        q, k, v = (rnd(B, Tq, Hq * D).view(B, Tq, Hq, D) for _ in range(3))
+        fn = getattr(fa, name)
+        kern = lambda: fn(q, k, v, scale)
+        plain = lambda: getattr(fa, name + "_plain")(q, k, v, scale)
+        lib = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)
+        pairs = Tq * Sk
+        kv_rows = Sk
+        out_bytes = B * Tq * Hq * D * 2
+    out = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    if name == "flash_kernel":
+        # late causal rows average thousands of keys, so |o| there is far
+        # below max|o|: each query's o is held to its own norm
+        _compare(f"{name} {shape} lse", out[1], ref[1], 1e-3, 1e-3)
+        max_abs = _compare_rows(f"{name} {shape}", out[0], ref[0], ROW_RTOL)
+    else:
+        max_abs = _compare(f"{name} {shape}", out, ref, BF16_ATOL, BF16_RTOL)
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, reps=3, rounds=3), time_ms(lib)
+    flops = 4.0 * B * Hq * pairs * D
+    nbytes = 2.0 * (B * Tq * Hq * D + 2 * B * kv_rows * Hkv * D) + out_bytes
+    b_ms, b_by = bound_ms(flops, nbytes)
+    log(f"[2] {name} {shape}: {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it), {flops / ms / 1e9:.1f} TFLOP/s")
+    return {
+        "name": name, "route": "cuda", "source": f"tdc_video_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces, "shape": shape,
+        "launches": 0, "max_abs_err": max_abs, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
+    }
+
+
 def phase_kernels(T: int, S: int):
     from tdc_video_tpu_torch.ops import flash_attention as fa
 
@@ -204,48 +294,8 @@ def phase_kernels(T: int, S: int):
          (N_FRAMES, 729, 729, 16, 16, 72), False),
     ]
     for name, replaces, (B, Tq, Sk, Hq, Hkv, D), causal in specs:
-        assert fa.select_kernel(Tq, Sk, Hq, Hkv, D, causal) == name
+        rows.append(_fwd_row(fa, rnd, name, replaces, (B, Tq, Sk, Hq, Hkv, D), causal))
         scale = 1.0 / math.sqrt(D)
-        if name == "flash_kernel":
-            q, k, v = rnd(B, Tq, Hq, D), rnd(B, Sk, Hkv, D), rnd(B, Sk, Hkv, D)
-            kern = lambda: fa.flash_kernel(q, k, v, scale, True)
-            plain = lambda: fa.flash_attention_plain(q, k, v, scale, True)
-            lib = lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k[:, :Tq].transpose(1, 2), v[:, :Tq].transpose(1, 2),
-                is_causal=True, scale=scale, enable_gqa=True)
-            pairs = Tq * (Tq + 1) // 2  # top-left causal: keys < T only
-            kv_rows = min(Sk, Tq)
-            out_bytes = B * Tq * Hq * D * 2 + B * Hq * Tq * 4  # o + f32 lse
-        else:
-            # packed [B, N, H*D] projections viewed as [B, N, H, D]
-            q, k, v = (rnd(B, Tq, Hq * D).view(B, Tq, Hq, D) for _ in range(3))
-            fn = getattr(fa, name)
-            kern = lambda: fn(q, k, v, scale)
-            plain = lambda: getattr(fa, name + "_plain")(q, k, v, scale)
-            lib = lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)
-            pairs = Tq * Sk
-            kv_rows = Sk
-            out_bytes = B * Tq * Hq * D * 2
-        out = kern()
-        ref = plain()
-        torch.cuda.synchronize()
-        if name == "flash_kernel":
-            _compare(name + " lse", out[1], ref[1], 1e-3, 1e-3)
-            out, ref = out[0], ref[0]
-        max_abs = _compare(name, out, ref, BF16_ATOL, BF16_RTOL)
-        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, reps=3, rounds=3), time_ms(lib)
-        flops = 4.0 * B * Hq * pairs * D
-        nbytes = 2.0 * (B * Tq * Hq * D + 2 * B * kv_rows * Hkv * D) + out_bytes
-        b_ms, b_by = bound_ms(flops, nbytes)
-        log(f"[2] {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
-        rows.append({
-            "name": name, "route": "cuda", "source": f"tdc_video_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "shape": f"q [{B}, {Tq}, {Hq}, {D}], kv [{B}, {Sk}, {Hkv}, {D}]",
-            "launches": 0, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        })
 
         # f32 operands take the scalar path: a small case, tight tolerance
         small = dict(flash_kernel=(2, 150, 200, 4, 2, D),
@@ -268,12 +318,13 @@ def phase_kernels(T: int, S: int):
 def _row(name, shape, replaces, max_abs, ms, plain_ms, lib_ms, flops, nbytes):
     """One entry of the kernels line, logged with its TFLOP/s."""
     b_ms, b_by = bound_ms(flops, nbytes)
-    log(f"[2] {name} {shape}: {ms:.3f} ms, plain {plain_ms:.3f} ms, yardstick {lib_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
+    log(f"[2] {name} {shape}: {ms:.4f} ms, plain {plain_ms:.3f} ms, yardstick {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f}% of it), {flops / ms / 1e9:.1f} TFLOP/s")
     return {
         "name": name, "route": "cuda", "source": f"tdc_video_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "shape": shape, "launches": 0, "max_abs_err": max_abs, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
     }
 
 
@@ -341,17 +392,23 @@ def _compare_rows(name, out, ref, rtol):
 
 
 def phase_train_kernels():
-    """K4, K5 and K6 against their plain versions and timed.  K4 at both
+    """K1 at the stage-2 LM shape (T = S = 8192, causal, GQA 24/8, D = 128),
+    K4, K5 and K6 against their plain versions and timed.  K4 at both
     tower shapes of the tower-trainable step.  K5 and K6 checked row by row
-    at the LM's widths with T=2048, at the stage-2 LM shape (T = S = 8192,
-    causal, GQA 24/8, D = 128), at both tower shapes and in small f32 cases,
-    and timed at the stage-2 LM shape and the tower shapes.  Rows carry the
-    DINOv2 timing of K4 and the stage-2 LM timing and error of K5/K6; the
-    others are printed."""
+    at the LM's widths with T=2048, at the stage-2 LM shape, at both tower
+    shapes and in small f32 cases, and timed at the stage-2 LM shape and the
+    tower shapes, each kernel and the pair K5+K6 beside the SDPA backward
+    (which computes dQ, dK and dV at once).  Rows carry the DINOv2 timing of
+    K4 and the stage-2 LM timing and error of K1, K5 and K6; the others are
+    printed."""
     from tdc_video_tpu_torch.ops import flash_attention as fa
 
     rnd = _rnd_fn(SEED + 2)
     rows = {"full_attention": k4_row(TOWER_FRAMES)}
+    rows["flash_kernel"] = _fwd_row(fa, rnd, "flash_kernel", "tdc_video_tpu/ops/flash_attention.py:38",
+                                    (1, TRAIN_T, TRAIN_T, 24, 8, 128), True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def bwd_inputs(B, T, Hq, Hkv, D, causal, dtype, packed):
         """q, k, v, dO, and lse, delta from the kernel forward (K1 or K4)."""
@@ -377,7 +434,7 @@ def phase_train_kernels():
     for label, (B, T, Hq, Hkv, D), causal, packed, dtype, timed in cases:
         args = bwd_inputs(B, T, Hq, Hkv, D, causal, dtype, packed)
         scale = 1.0 / math.sqrt(D)
-        rtol = BWD_ROW_RTOL if dtype == bf16 else F32_ATOL
+        rtol = ROW_RTOL if dtype == bf16 else F32_ATOL
         dq = fa.flash_dq_kernel(*args, scale, causal)
         dk, dv = fa.flash_dkv_kernel(*args, scale, causal)
         dq_r = fa.flash_dq_plain(*args, scale, causal)
@@ -398,16 +455,23 @@ def phase_train_kernels():
         lib_ms = fwd_bwd_ms - fwd_ms
         pairs = T * (T + 1) // 2 if causal else T * T
         io = 2.0 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) + 8.0 * B * Hq * T  # q, dO, k, v, lse, delta
+        pair = []
         for name, mult, out_bytes in (("flash_dq_kernel", 6, 2.0 * B * T * Hq * D),
                                       ("flash_dkv_kernel", 8, 4.0 * B * T * Hkv * D)):
             fn = getattr(fa, name)
             ms = time_ms(lambda: fn(*args, scale, causal))
             plain = getattr(fa, name.replace("_kernel", "_plain"))
             plain_ms = time_ms(lambda: plain(*args, scale, causal), reps=2, rounds=3, warmup=1)
-            r = _row(name, f"{label} (yardstick: SDPA backward, dQ+dK+dV)",
-                     "tdc_video_tpu/ops/flash_attention.py:" + ("433" if name == "flash_dq_kernel" else "489"),
-                     err[name], ms, plain_ms, lib_ms, mult * pairs * D * B * Hq, io + out_bytes)
-            rows.setdefault(name, r)
+            pair.append(_row(name, f"{label} (yardstick: SDPA backward, dQ+dK+dV)",
+                             "tdc_video_tpu/ops/flash_attention.py:" + ("433" if name == "flash_dq_kernel" else "489"),
+                             err[name], ms, plain_ms, lib_ms, mult * pairs * D * B * Hq, io + out_bytes))
+        pair_ms = pair[0]["ms"] + pair[1]["ms"]
+        log(f"[2] K5+K6 {label}: {pair_ms:.4f} ms against the SDPA backward's {lib_ms:.4f} ms "
+            f"({pair_ms / lib_ms:.2f}x); bound {pair[0]['bound_ms'] + pair[1]['bound_ms']:.4f} ms "
+            f"({100 * (pair[0]['bound_ms'] + pair[1]['bound_ms']) / pair_ms:.1f}% of it)")
+        for r in pair:
+            r.update(pair_ms=pair_ms, pair_vs_library=pair_ms / lib_ms)
+            rows.setdefault(r["name"], r)
     log("kernels " + json.dumps({r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                                  for r in rows.values()}))
     return list(rows.values())
@@ -526,7 +590,8 @@ def phase_flash_vs_xla(cfg, params, pred, frames):
 
 def profile_stage(tag: str, name: str, fn) -> None:
     """torch.profiler over one call of fn: wall time, the device's busy time
-    and share, and the 8 largest device items by kernel name."""
+    and share, the 8 largest device items by kernel name, and the device
+    time of each of the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -542,6 +607,10 @@ def profile_stage(tag: str, name: str, fn) -> None:
         f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} device ops")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    # the port's own kernels, wherever they rank
+    ours = [e for e in kernels if e.key.startswith("void tdc::")]
+    for e in sorted(ours, key=lambda e: e.self_device_time_total, reverse=True):
+        log(f"[{tag}]   port kernel {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
 def phase_profile(pred, frames) -> None:

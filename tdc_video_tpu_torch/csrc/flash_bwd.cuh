@@ -19,12 +19,13 @@
 // out of P, so they never contribute, and a zero dO row gives an exactly zero
 // dQ row (dP = 0 and delta = 0 there).
 //
-// The bf16 kernels use the forward's building blocks (flash_fwd.cuh): cp.async
-// staging, ldmatrix, mma.sync m16n8k16 with f32 accumulators, and the
-// identity between the accumulator fragment of a 16x16 tile and the A-operand
-// fragment of the next product, so P and dS go from one product into the next
-// without leaving registers. The f32 kernels are scalar FMA loops of the same
-// math, used for exact checks.
+// The bf16 kernels are written for sm_90a (sm90.cuh): TMA loads into a ring
+// of shared-memory stages completed on mbarriers, one producer warpgroup and
+// two consumer warpgroups, and wgmma with f32 accumulators. They keep the
+// identity between the accumulator fragment of a 64-row wgmma tile and the
+// A-operand registers of the next product, so P and dS go from one product
+// into the next without leaving registers. The f32 kernels are scalar FMA
+// loops of the same math, used for exact checks.
 #pragma once
 
 #include "flash_fwd.cuh"

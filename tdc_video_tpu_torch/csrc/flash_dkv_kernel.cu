@@ -6,214 +6,223 @@
 // partials over each GQA group that the JAX package does outside the kernel
 // (:638-640).
 //
-// One block per (batch, KV head, 64-key tile); each of its four warps owns 16
-// keys. The block loops over the group's query heads and, for each, over the
-// query tiles from the causal diagonal down, with Q, dO, lse and delta
-// double-buffered (cp.async). Everything is computed transposed, keys as
-// rows: S^T = K Q^T, P^T = exp(scale S^T - lse) masked, dV += P^T dO,
-// dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q. So P^T and dS^T come
-// out of their products in the accumulator layout that is the A operand of
-// the next (rounded to bf16 in place), and Q and dO serve as B operands both
-// ways: ldmatrix for the transposed-B products S^T and dP^T, ldmatrix.trans for
-// P^T dO and dS^T Q. The dK and dV accumulators stay in registers across all
-// query heads of the group, so the group sum costs no f32 partial buffer in
-// device memory and no atomics.
-//
 // Bound on the H100: at the stage-2 LM shape (T = S = 8192, 24 query heads,
 // D = 128, causal) one call is 4 products over the causal half, 8 * 24 *
 // 8192^2 / 2 * 128 = 8.2e11 FLOP against ~0.17 GB of operands, dK and dV:
-// compute-bound.
+// bound by operations (0.83 ms at the bf16 peak).
 //
-// What the simple design leaves on the table: mma.sync, not wgmma; two f32
-// accumulators of 16 x D per warp cap the tile at 64 keys; S and dP are
-// recomputed here and in K5.
+// bf16 design (sm_90a): one block of three warpgroups per (KV head, 64 keys,
+// batch), key tile 0 (the most causal work) first. Everything is computed
+// transposed, keys as rows, so that P^T and dS^T come out of their products
+// in the layout of the A registers of the next ones:
+//   * warpgroup 2 is the producer (setmaxnreg 40): one thread loads the
+//     block's K and V rows by TMA (resident), then streams 64-row Q and dO
+//     tiles, with their rows' lse and delta, into a 3-stage ring over the
+//     group's query heads and, for each, over the query tiles from the last
+//     down to the causal diagonal (so that neighbouring blocks share them in
+//     L2). Stages complete on mbarriers;
+//   * warpgroup 0 accumulates dV: S^T = K Q^T (wgmma, both operands in
+//     shared memory, K-major), P^T = exp(scale S^T - lse) masked, handed to
+//     warpgroup 1 through shared memory in f32, and rounded to bf16 into the
+//     A registers of dV += P^T dO (B = the dO tile read MN-major);
+//   * warpgroup 1 accumulates dK: dP^T = V dO^T while warpgroup 0 computes
+//     S^T, then dS^T = P^T (dP^T - delta) with warpgroup 0's P^T, rounded
+//     into the A registers of dK += dS^T Q (B = the Q tile, MN-major).
+// Each warpgroup holds one 64 x D f32 accumulator (64 registers a thread at
+// D = 128) across all query heads of the group, so the group sum needs no
+// partial buffer and no atomics, and the result does not depend on timing.
+// What the design does about the limits of the mma.sync kernel it replaces:
+// every product is a wgmma, two per warpgroup and query tile; splitting dV
+// and dK between the warpgroups keeps one accumulator, one 64 x 64 f32 tile
+// and its bf16 copy a thread, within the registers (two accumulators and
+// two tiles a warpgroup do not fit, and make ptxas spill and serialize the
+// wgmma); the producer keeps up to three tiles in flight and no
+// __syncthreads() ties the warps to the loads; the mask is evaluated only on
+// tiles that cross the diagonal, T or kv_len. What it leaves: every block
+// streams its group's Q and dO tiles (32 KB each at D = 128) from L2 for
+// only 64 keys; a cluster of blocks sharing each tile by TMA multicast would
+// cut that traffic.
 #include "flash_bwd.cuh"
+#include "sm90.cuh"
 
 namespace tdc {
 
-template <int DP>
-constexpr size_t dkv_smem_bf16() {
-  // K, V, Q[2], dO[2] tiles, then lse and delta [2][BM] f32
-  return (size_t)(2 * BN + 4 * BM) * (DP + 8) * sizeof(bf16) + 4 * BM * sizeof(float);
-}
+namespace k6 {
+constexpr int KROWS = 64;  // keys per block
+constexpr int QROWS = 64;  // query rows per streamed tile
+constexpr int NST = 3;     // Q/dO ring stages
+constexpr int NTHR = 384;  // warpgroup 0 (dV), 1 (dK), producer warpgroup 2
+// lse and delta of a query tile: QROWS + 4 values from the 16-byte boundary
+// at or before the tile's first row, in a 384-byte slot
+constexpr int STAT_BOX = QROWS + 4;
+constexpr int STAT_SLOT = 96;  // floats
+constexpr int PX = 128 * 32 * 4;  // P^T exchange per stage: 32 f32 a thread of warpgroup 0
 
-// lse (scaled to log2) and delta of query rows [q0, q0 + BM) into shared
-// memory, zero past T; plain loads (the rows need no 16-byte alignment).
-__device__ __forceinline__ void load_row_stats(float* ls, float* dl, const float* lse,
-                                               const float* delta, int q0, int T, int tid) {
-  if (tid < BM) {
-    ls[tid] = q0 + tid < T ? lse[q0 + tid] * LOG2E : 0.f;
-  } else if (tid < 2 * BM) {
-    const int i = tid - BM;
-    dl[i] = q0 + i < T ? delta[q0 + i] : 0.f;
-  }
+template <int DP>
+constexpr size_t smem_bytes() {
+  // K, V, Q[NST], dO[NST], P^T[NST], lse and delta [NST][2] slots, 3 NST + 1
+  // mbarriers, alignment slack
+  return (size_t)(2 * KROWS + 2 * NST * QROWS) * DP * 2 + NST * PX + NST * 2 * STAT_SLOT * 4 +
+         8 * (3 * NST + 1) + 1024;
 }
+}  // namespace k6
 
 template <int DP, bool CAUSAL>
-__global__ void __launch_bounds__(NTHREADS) flash_dkv_bf16_kernel(const BwdParams p) {
-  constexpr int LD = DP + 8;
-  constexpr int NK = DP / 16;  // k-steps over the head dim
-  constexpr int NO = DP / 8;   // 8-wide column tiles of dK and dV
-  constexpr int NS = BM / 8;   // 8-wide column (query) tiles of S^T and dP^T
-  static_assert(BM == BN, "the causal start tile assumes square tiles");
+__global__ void __launch_bounds__(k6::NTHR, 1)
+    flash_dkv_bf16_kernel(const BwdParams p, const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tlse,
+                          const __grid_constant__ CUtensorMap tdelta) {
+  using namespace sm90;
+  using k6::KROWS;
+  using k6::NST;
+  using k6::QROWS;
+  constexpr int PW = panel_width<DP>;
+  constexpr uint32_t TK = KROWS * DP * 2, TQ = QROWS * DP * 2;  // tile bytes
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BN * LD;
-  bf16* Qs = Vs + BN * LD;   // 2 buffers
-  bf16* Ds = Qs + 2 * BM * LD;  // 2 buffers
-  float* Ls = reinterpret_cast<float*>(Ds + 2 * BM * LD);  // [2][BM]
-  float* Dl = Ls + 2 * BM;                                 // [2][BM]
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base, sV = base + TK, sQ = base + 2 * TK, sD = sQ + NST * TQ;
+  const uint32_t sP = sD + NST * TQ;            // [NST][8][128] float4
+  const uint32_t sStat = sP + NST * k6::PX;     // [NST][lse, delta] slots of STAT_SLOT f32
+  float4* pbuf = reinterpret_cast<float4*>(smem + (sP - raw));
+  const float* stat = reinterpret_cast<const float*>(smem + (sStat - raw));
+  const uint32_t bars = sStat + NST * 2 * k6::STAT_SLOT * 4;  // full, empty, P^T [NST]; K/V
+  const uint32_t kvbar = bars + 24 * NST;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // key tile 0 has the most causal work and starts first
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BN;
+  const int b = blockIdx.z, hk = blockIdx.x, k0 = blockIdx.y * KROWS;
   const int group = p.Hq / p.Hkv;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const int n_qt = (p.T + BM - 1) / BM;
-  const int i0 = CAUSAL ? min(k0 / BM, n_qt) : 0;  // earlier query tiles see no key here
+  const int n_qt = (p.T + QROWS - 1) / QROWS;
+  const int i0 = CAUSAL ? min(k0 / QROWS, n_qt) : 0;  // earlier query tiles see no key here
   const int n_q = n_qt - i0;
+  // iteration it: query head hk * group + it / n_q, query tile n_qt - 1 - it % n_q.
+  // The tiles run from the last down to the diagonal, so that the blocks in
+  // flight (neighbouring key tiles) read the same Q and dO tiles at about the
+  // same time, from L2
   const int n_iter = group * n_q;
 
-  load_tile<BN, DP>(Ks, kg, p.k_ss, k0, p.kv_len, p.D, tid);
-  load_tile<BN, DP>(Vs, vg, p.v_ss, k0, p.kv_len, p.D, tid);
-  cp_async_commit();
-
-  // iteration it: query head hk * group + it / n_q, query tile i0 + it % n_q
-  auto stage = [&](int it, int buf) {
-    const int h = hk * group + it / n_q, q0 = (i0 + it % n_q) * BM;
-    const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const bf16* dg = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    load_tile<BM, DP>(Qs + buf * BM * LD, qg, p.q_st, q0, p.T, p.D, tid);
-    load_tile<BM, DP>(Ds + buf * BM * LD, dg, p.do_st, q0, p.T, p.D, tid);
-    const long long rs = ((long long)b * p.Hq + h) * p.T;
-    load_row_stats(Ls + buf * BM, Dl + buf * BM, p.lse + rs, p.delta + rs, q0, p.T, tid);
-  };
-  if (n_iter > 0) stage(0, 0);
-  cp_async_commit();
-
-  const int g = lane >> 2, t4 = lane & 3;
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const float scale_log2 = p.scale * LOG2E;
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (NST + s), 8);      // one arrival per consumer warp
+      mbar_init(bars + 8 * (2 * NST + s), 4);  // one per warp of warpgroup 0
+    }
+    mbar_init(kvbar, 1);
+    mbar_init_fence();
   }
-  const int a_off = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;  // + kk * 16
+  __syncthreads();
 
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iter) stage(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the tiles just requested has landed
-    __syncthreads();
-    const bf16* Qb = Qs + buf * BM * LD;
-    const bf16* Db = Ds + buf * BM * LD;
-    const float* Lb = Ls + buf * BM;
-    const float* Dlb = Dl + buf * BM;
-    const int q0 = (i0 + it % n_q) * BM;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(kvbar, 2 * TK);
+      tma_load_tile<KROWS, DP, PW>(sK, &tk, kvbar, hk, k0, b);
+      tma_load_tile<KROWS, DP, PW>(sV, &tv, kvbar, hk, k0, b);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % NST;
+        const int h = hk * group + it / n_q, q0 = (n_qt - 1 - it % n_q) * QROWS;
+        mbar_wait(bars + 8 * (NST + s), ((it / NST) & 1) ^ 1);
+        mbar_arrive_expect_tx(bars + 8 * s, 2 * TQ + 2 * k6::STAT_BOX * 4);
+        tma_load_tile<QROWS, DP, PW>(sQ + s * TQ, &tq, bars + 8 * s, h, q0, b);
+        tma_load_tile<QROWS, DP, PW>(sD + s * TQ, &tdo, bars + 8 * s, h, q0, b);
+        // from the 16-byte boundary at or before the tile's first row; rows
+        // past T read the next head's values (or zeros past the end), and
+        // those queries are masked
+        const int row = ((b * p.Hq + h) * p.T + q0) & ~3;
+        tma_load_1d(sStat + s * 2 * k6::STAT_SLOT * 4, &tlse, bars + 8 * s, row);
+        tma_load_1d(sStat + (s * 2 + 1) * k6::STAT_SLOT * 4, &tdelta, bars + 8 * s, row);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    // accumulator rows (keys) of this thread (sm90.cuh: the wgmma layout)
+    const int keys[2] = {k0 + warp * 16 + lane / 4, k0 + warp * 16 + lane / 4 + 8};
+    float acc[DP / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
-    // S^T = K Q^T: A from the warp's K rows, B from Q's [query, d] rows
-    float st[NS][4];
+    mbar_wait(kvbar, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % NST;
+      const uint32_t parity = (it / NST) & 1;
+      const int h = hk * group + it / n_q, q0 = (n_qt - 1 - it % n_q) * QROWS;
+      const uint32_t qt = opaque(sQ + s * TQ), dt = opaque(sD + s * TQ);
+      const float* st_row = stat + s * 2 * k6::STAT_SLOT + (((b * p.Hq + h) * p.T + q0) & 3);
+      const bool mask = q0 + QROWS > p.T || k0 + KROWS > p.kv_len || (CAUSAL && q0 < k0 + KROWS - 1);
+      float x[32];  // S^T, then P^T (warpgroup 0); dP^T, then dS^T (warpgroup 1)
+      uint32_t a[4][4];
+      mbar_wait(bars + 8 * s, parity);
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NS; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64(x, desc_k<KROWS, PW>(opaque(wg == 0 ? sK : sV), 0, kk),
+                     desc_k<QROWS, PW>(wg == 0 ? qt : dt, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      // accumulator column i is query q0 + c0 + (i / 4) * 8 + (i & 1)
+      const int c0 = 2 * (lane % 4);
+      float4* px = pbuf + s * 8 * 128 + t;  // this thread's P^T, 8 float4 strided by 128
+      if (wg == 0) {
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t ka[4];
-      ldmatrix_x4(ka, smem_u32(Ks + a_off + kk * 16));
+        for (int i = 0; i < 32; ++i) {
+          const int c = c0 + (i / 4) * 8 + (i & 1), key = keys[(i >> 1) & 1];
+          float pr = exp2_approx(fmaf(x[i], p.scale, -st_row[c]) * LOG2E);
+          if (mask && !(key < p.kv_len && q0 + c < p.T && (!CAUSAL || key <= q0 + c))) pr = 0.f;
+          x[i] = pr;
+        }
 #pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t qb[4];
-        ldmatrix_x4(qb, smem_u32(Qb + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                                 ((lane >> 3) & 1) * 8));
-        mma_bf16(st[n], ka, qb[0], qb[1]);
-        mma_bf16(st[n + 1], ka, qb[2], qb[3]);
+        for (int j = 0; j < 8; ++j) px[j * 128] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bars + 8 * (2 * NST + s));  // P^T of this warp is written
+      } else {
+        mbar_wait(bars + 8 * (2 * NST + s), parity);
+        const float* dl = st_row + k6::STAT_SLOT;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 pr = px[j * 128];
+          const float v[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e, c = c0 + j * 8 + (e & 1);
+            x[i] = v[e] * (x[i] - dl[c]);
+          }
+        }
       }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) a[kk][y] = pack_bf16(x[8 * kk + 2 * y], x[8 * kk + 2 * y + 1]);
+      // dV += P^T dO, or dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, a[kk], desc_mn<QROWS, PW>(wg == 0 ? dt : qt, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (NST + s));  // this warp is done with the stage
     }
-    // P^T, masked; element (key keys[e >> 1], query q0 + n * 8 + 2 t4 + (e & 1))
-    uint32_t pf[BM / 16][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * t4 + (e & 1), key = keys[e >> 1];
-        const bool vis = key < p.kv_len && q0 + ql < p.T && (!CAUSAL || key <= q0 + ql);
-        st[n][e] = vis ? exp2f(fmaf(st[n][e], scale_log2, -Lb[ql])) : 0.f;
-      }
-      pf[n >> 1][(n & 1) * 2] = pack_bf16(st[n][0], st[n][1]);
-      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(st[n][2], st[n][3]);
-    }
-    // dV += P^T dO: ldmatrix.trans of dO's [query, d] rows is the B operand
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t db[4];
-        ldmatrix_x4_trans(db, smem_u32(Db + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                       (n + (lane >> 4)) * 8));
-        mma_bf16(dv[n], pf[kk], db[0], db[1]);
-        mma_bf16(dv[n + 1], pf[kk], db[2], db[3]);
-      }
-    }
-    // dP^T = V dO^T
-    float dpt[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t va[4];
-      ldmatrix_x4(va, smem_u32(Vs + a_off + kk * 16));
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t db[4];
-        ldmatrix_x4(db, smem_u32(Db + (n * 8 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                                 ((lane >> 3) & 1) * 8));
-        mma_bf16(dpt[n], va, db[0], db[1]);
-        mma_bf16(dpt[n + 1], va, db[2], db[3]);
-      }
-    }
-    // dS^T = P^T (dP^T - delta), rounded to bf16 as the A operand of dS^T Q
-    uint32_t dsf[BM / 16][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[e] = st[n][e] * (dpt[n][e] - Dlb[n * 8 + 2 * t4 + (e & 1)]);
-      dsf[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      dsf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-    // dK += dS^T Q: ldmatrix.trans of Q's [query, d] rows is the B operand
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t qb[4];
-        ldmatrix_x4_trans(qb, smem_u32(Qb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                       (n + (lane >> 4)) * 8));
-        mma_bf16(dk[n], dsf[kk], qb[0], qb[1]);
-        mma_bf16(dk[n + 1], dsf[kk], qb[2], qb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-  cp_async_wait<0>();
 
-  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
+    // warpgroup 0 writes dV, warpgroup 1 dK (times the scale)
+    bf16* og = static_cast<bf16*>(wg == 0 ? p.dv : p.dk) + b * (wg == 0 ? p.dv_sb : p.dk_sb) +
+               hk * (wg == 0 ? p.dv_sh : p.dk_sh);
+    const long long o_ss = wg == 0 ? p.dv_ss : p.dk_ss;
+    const float osc = wg == 0 ? 1.f : p.scale;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (keys[r] >= p.kv_len) continue;
-    bf16* krow = dkg + (long long)keys[r] * p.dk_ss;
-    bf16* vrow = dvg + (long long)keys[r] * p.dv_ss;
+    for (int r = 0; r < 2; ++r) {
+      if (keys[r] >= p.kv_len) continue;
+      bf16* orow = og + (long long)keys[r] * o_ss;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int col = n * 8 + 2 * t4;
-      if (col < p.D) {  // D is a multiple of 8: col + 1 < D too
-        *reinterpret_cast<uint32_t*>(krow + col) =
-            pack_bf16(p.scale * dk[n][2 * r], p.scale * dk[n][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(vrow + col) = pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = n * 8 + 2 * (lane % 4);
+        if (col < p.D)  // D is a multiple of 8: col + 1 < D too
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(osc * acc[4 * n + 2 * r], osc * acc[4 * n + 2 * r + 1]);
       }
     }
   }
@@ -316,19 +325,49 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_f32_kernel(const BwdParams
 }
 
 template <int DP, bool CAUSAL>
-cudaError_t launch_dkv(const BwdParams& p, int is_f32, cudaStream_t stream) {
-  const dim3 grid((p.kv_len + BN - 1) / BN, p.Hkv, p.B);
-  if (is_f32) return launch_bwd(flash_dkv_f32_kernel<DP, CAUSAL>, grid, dkv_smem_f32<DP>(), p, stream);
-  return launch_bwd(flash_dkv_bf16_kernel<DP, CAUSAL>, grid, dkv_smem_bf16<DP>(), p, stream);
+cudaError_t launch_dkv_bf16(const BwdParams& p, cudaStream_t stream) {
+  constexpr int PW = sm90::panel_width<DP>;
+  const int n_kt = (p.kv_len + k6::KROWS - 1) / k6::KROWS;
+  if (n_kt > 65535 || (long long)p.B * p.Hq * p.T >= (1ll << 31)) return cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv, tlse, tdelta;
+  cudaError_t e = sm90::make_map(&tq, p.q, p.B, p.T, p.Hq, p.D, p.q_sb, p.q_st, p.q_sh, PW, k6::QROWS);
+  if (e == cudaSuccess)
+    e = sm90::make_map(&tdo, p.dout, p.B, p.T, p.Hq, p.D, p.do_sb, p.do_st, p.do_sh, PW, k6::QROWS);
+  if (e == cudaSuccess)
+    e = sm90::make_map(&tk, p.k, p.B, p.kv_len, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, PW, k6::KROWS);
+  if (e == cudaSuccess)
+    e = sm90::make_map(&tv, p.v, p.B, p.kv_len, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, PW, k6::KROWS);
+  const long long n_rows = (long long)p.B * p.Hq * p.T;  // lse and delta, flat
+  if (e == cudaSuccess) e = sm90::make_map_f32(&tlse, p.lse, n_rows, k6::STAT_BOX);
+  if (e == cudaSuccess) e = sm90::make_map_f32(&tdelta, p.delta, n_rows, k6::STAT_BOX);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_dkv_bf16_kernel<DP, CAUSAL>;
+  const size_t smem = k6::smem_bytes<DP>();
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(p.Hkv, n_kt, p.B), k6::NTHR, smem, stream>>>(p, tq, tdo, tk, tv, tlse, tdelta);
+  return cudaGetLastError();
 }
 
+template <int DP, bool CAUSAL>
+cudaError_t launch_dkv_f32(const BwdParams& p, cudaStream_t stream) {
+  const dim3 grid((p.kv_len + BN - 1) / BN, p.Hkv, p.B);
+  return launch_bwd(flash_dkv_f32_kernel<DP, CAUSAL>, grid, dkv_smem_f32<DP>(), p, stream);
+}
+
+// Head dims are zero-padded as in dispatch_dq.
 template <bool CAUSAL>
 cudaError_t dispatch_dkv(const BwdParams& p, int is_f32, cudaStream_t stream) {
-  if (p.D <= 16) return launch_dkv<16, CAUSAL>(p, is_f32, stream);
-  if (p.D <= 32) return launch_dkv<32, CAUSAL>(p, is_f32, stream);
-  if (p.D <= 64) return launch_dkv<64, CAUSAL>(p, is_f32, stream);
-  if (p.D <= 80) return launch_dkv<80, CAUSAL>(p, is_f32, stream);
-  return launch_dkv<128, CAUSAL>(p, is_f32, stream);
+  if (!is_f32) {
+    if (p.D <= 64) return launch_dkv_bf16<64, CAUSAL>(p, stream);
+    if (p.D <= 80) return launch_dkv_bf16<80, CAUSAL>(p, stream);
+    return launch_dkv_bf16<128, CAUSAL>(p, stream);
+  }
+  if (p.D <= 16) return launch_dkv_f32<16, CAUSAL>(p, stream);
+  if (p.D <= 32) return launch_dkv_f32<32, CAUSAL>(p, stream);
+  if (p.D <= 64) return launch_dkv_f32<64, CAUSAL>(p, stream);
+  if (p.D <= 80) return launch_dkv_f32<80, CAUSAL>(p, stream);
+  return launch_dkv_f32<128, CAUSAL>(p, stream);
 }
 
 }  // namespace tdc

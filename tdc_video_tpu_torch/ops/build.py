@@ -68,12 +68,15 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names=SOURCES) -> Tuple[Dict[str, Path], float, str]:
     """Compile every missing library, one nvcc process per source, all
-    started together.  Returns ({name: path}, seconds, compiler output with
-    ptxas's registers and spills per kernel)."""
+    started together; each library's compiler output is kept beside it (.log).
+    Returns ({name: path}, seconds, the compiler output of every library in
+    `names`, this build's or the one that made it: ptxas's registers, spills
+    and warnings per kernel)."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
-    todo = [n for n in names if not paths[n].exists()]
+    logs = {n: paths[n].with_suffix(".log") for n in names}
+    todo = [n for n in names if not (paths[n].exists() and logs[n].exists())]
     procs: List[Tuple[str, subprocess.Popen, Path]] = []
     if todo:
         nvcc = nvcc_path()
@@ -82,18 +85,18 @@ def build_all(names=SOURCES) -> Tuple[Dict[str, Path], float, str]:
             cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{n}.cu")]
             procs.append((n, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                               stderr=subprocess.STDOUT, text=True), tmp))
-    logs, failed = [], []
+    failed = []
     for n, proc, tmp in procs:
         out, _ = proc.communicate()
-        logs.append(f"--- nvcc {n}.cu (rc {proc.returncode})\n{out}")
+        out = f"--- nvcc {n}.cu (rc {proc.returncode})\n{out}"
         if proc.returncode != 0:
-            failed.append(n)
+            failed.append(out)
         else:
+            logs[n].write_text(out)
             os.replace(tmp, paths[n])
-    log = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
-    return paths, time.perf_counter() - t0, log
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths, time.perf_counter() - t0, "\n".join(logs[n].read_text() for n in names)
 
 
 def entry_point(name: str) -> str:

@@ -11,9 +11,10 @@ Each of the JAX package's six Pallas kernels has a CUDA C++ counterpart here
     K6 flash_dkv_kernel         dK, dV and the GQA group sum   csrc/flash_dkv_kernel.cu
 
 K1-K4 are instances of one forward template (csrc/flash_fwd.cuh), K5 and K6
-share csrc/flash_bwd.cuh.  All read q/dO [B, T, Hq, D] and k/v [B, S, Hkv,
-D] in place through their strides, so the JAX package's transposes to
-[B, H, T, D] are gone.  Each wrapper takes its plain PyTorch version only
+share csrc/flash_bwd.cuh; their bf16 bodies are written for sm_90a (TMA,
+mbarriers, wgmma and warp specialisation, csrc/sm90.cuh).  All read q/dO
+[B, T, Hq, D] and k/v [B, S, Hkv, D] in place through their strides, so the
+JAX package's transposes to [B, H, T, D] are gone.  Each wrapper takes its plain PyTorch version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
 `launches` counts kernel launches.
 
@@ -214,6 +215,36 @@ def _check(q, k, v, same_len: bool = False, same_heads: bool = False, extra=()) 
         raise ValueError(f"bf16 kernels need head_dim % 8 == 0, got {D}")
 
 
+def tma_operand(t) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The 4-D TMA tensor map that K5 and K6 build over a bf16 operand
+    [B, L, H, D]: dims innermost first (D, H, L, B) and the byte strides of
+    H, L and B, which `_launch_bwd` passes and csrc/sm90.cuh make_map uses as
+    they are.  A dim of size 1 gets the stride a packed tensor would have
+    there (its stride is never used).  Raises ValueError where a tensor map
+    cannot describe the operand: each stride a positive multiple of 16 bytes
+    below 2**40."""
+    B, L, H, D = t.shape
+    dims = (D, H, L, B)
+    strides, packed = [], 2 * D
+    for size, stride in zip(dims[1:], (t.stride(2), t.stride(1), t.stride(0))):
+        s = packed if size == 1 else 2 * stride
+        if s % 16 != 0 or not 0 < s < 2**40:
+            raise ValueError(f"a TMA tensor map cannot describe strides {t.stride()} of shape "
+                             f"{tuple(t.shape)}")
+        strides.append(s)
+        packed = s * size
+    return dims, tuple(strides)
+
+
+def bwd_operand_strides(t) -> Tuple[int, int, int]:
+    """The (batch, row, head) element strides `_launch_bwd` passes for q, k,
+    v or dO: for bf16, those of the operand's tensor map (tma_operand)."""
+    if t.dtype != torch.bfloat16:
+        return tuple(t.stride()[:3])
+    sh, sl, sb = (s // 2 for s in tma_operand(t)[1])
+    return sb, sl, sh
+
+
 def _raise_on_error(lib, name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.tdc_error_string(err).decode()} ({err})")
@@ -257,7 +288,8 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, scale: float, causal: bool):
     dq = new((B, T, Hq, D)) if name == "flash_dq_kernel" else None
     dk, dv = (new((B, S, Hkv, D)), new((B, S, Hkv, D))) if name == "flash_dkv_kernel" else (None, None)
     st = lambda t: t.stride()[:3] if t is not None else (0, 0, 0)
-    strides = (ctypes.c_int64 * 21)(*st(q), *st(k), *st(v), *st(do), *st(dq), *st(dk), *st(dv))
+    strides = (ctypes.c_int64 * 21)(*(s for t in (q, k, v, do) for s in bwd_operand_strides(t)),
+                                    *st(dq), *st(dk), *st(dv))
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.load(name)
     err = getattr(lib, build.entry_point(name))(
