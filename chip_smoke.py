@@ -7,10 +7,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. device and build: the card's name and power limit, the CUDA version, and
    an nvcc build of all six kernel libraries from tdc_video_tpu_torch/csrc/
    (one nvcc per source, all started together), with ptxas's registers and
-   spills (the log each library was built with); the backward kernels K5
-   and K6 must spill nothing, ptxas must not serialize their wgmma (warning
-   C7512), and cuobjdump must find HGMMA (wgmma) instructions in each of
-   their bf16 kernels;
+   spills (the log each library was built with); in the sm_90a libraries
+   (K1 and K3, whose bf16 body above head dim 32 is the wgmma template, K5
+   and K6) no bf16 kernel may spill, ptxas must not serialize a wgmma
+   (warnings C7511-C7513), and cuobjdump must find HGMMA (wgmma)
+   instructions in each instance of their wgmma kernels;
 2. each kernel against its plain PyTorch version on the card, at its paths'
    shapes in bf16 (and a small f32 case), with error, time, the plain
    version's time, a PyTorch yardstick the port never calls (one
@@ -161,22 +162,22 @@ def phase_device_build():
         name, regs, spills, serialized = ptxas_report(lib)
         log(f"[1] ptxas {name}.cu: bf16 kernels use {min(regs)}-{max(regs)} registers, "
             f"{spills} bytes of spill stores, {len(serialized)} with serialized wgmma")
-        if name in build.BACKWARD and (spills or serialized):
-            raise AssertionError(f"{name}: the wgmma kernels spill {spills} bytes; "
+        if name in build.SM90 and (spills or serialized):
+            raise AssertionError(f"{name}: the bf16 kernels spill {spills} bytes; "
                                  f"ptxas serialized the wgmma of {serialized}")
-    # the backward kernels run on wgmma: HGMMA instructions in their bf16
-    # kernels' machine code
+    # the sm_90a kernels run on wgmma: HGMMA instructions in the machine code
+    # of each (K1 and K3 at DP 64/80/128, K5, K6)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc_path()),
                                                          "cuobjdump")
-    for name in build.BACKWARD:
+    for name, kernel in build.SM90.items():
         sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         funcs = re.split(r"\n\s*Function : ", sass)[1:]
-        hgmma = {f.split("\n", 1)[0]: f.count("HGMMA.") for f in funcs if "bf16" in f.split("\n", 1)[0]}
-        log(f"[1] cuobjdump {name}: {sum(hgmma.values())} HGMMA instructions in {len(hgmma)} bf16 "
-            f"kernels (fewest {min(hgmma.values(), default=0)})")
+        hgmma = {f.split("\n", 1)[0]: f.count("HGMMA.") for f in funcs if kernel in f.split("\n", 1)[0]}
+        log(f"[1] cuobjdump {name}: {sum(hgmma.values())} HGMMA instructions in {len(hgmma)} "
+            f"{kernel} instances (fewest {min(hgmma.values(), default=0)})")
         if not hgmma or min(hgmma.values()) == 0:
-            raise AssertionError(f"{name}: a bf16 kernel has no HGMMA instruction")
+            raise AssertionError(f"{name}: a {kernel} instance has no HGMMA instruction")
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-// Forward attention shared by the port's three attention kernels.
+// Forward attention shared by the port's four forward kernels (K1-K4).
 //
 // One block computes one (batch, query head, 64-row query tile). Its four
 // warps own 16 query rows each. The block walks the KV axis in tiles of 64
 // keys and keeps the running row max and row sum in f32 (online softmax).
+// The bf16 body of K1 and K3 at head dims above 32 is the sm_90a template of
+// flash_fwd_sm90.cuh instead, with the same semantics and checks.
 //
 // Semantics (what every TPU kernel it replaces computes):
 //   * scores are f32 dot products of input-dtype operands; the scale
@@ -22,7 +24,7 @@
 // up to DP, a multiple of 16, which is the K-step of a bf16 mma.
 //
 // Two instances of that structure:
-//   * bf16 (the serving path): Q, K and V tiles go global -> shared memory by
+//   * bf16 (K2, K4, and K1 and K3 at D <= 32): Q, K and V tiles go global -> shared memory by
 //     cp.async (16 bytes a thread, K/V double-buffered so the next tile's
 //     load overlaps this tile's math), shared -> registers by ldmatrix, and
 //     through the tensor cores with mma.sync m16n8k16 (f32 accumulate). S, P
@@ -418,14 +420,15 @@ cudaError_t dispatch_dp(const FwdParams& p, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-template <bool CAUSAL>
-cudaError_t dispatch(const FwdParams& p, int is_f32, cudaStream_t stream) {
+// The checks every forward entry point makes before it launches.
+inline cudaError_t check_fwd(const FwdParams& p, int is_f32) {
   if (p.B <= 0 || p.T <= 0 || p.Hq <= 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.kv_len <= 0 ||
-      p.kv_len > p.S || p.B > 65535 || p.Hq > 65535) {
+      p.kv_len > p.S || p.B > 65535 || p.Hq > 65535 || p.D <= 0 || p.D > 128) {
     return cudaErrorInvalidValue;
   }
-  if (is_f32) return dispatch_dp<CAUSAL, true>(p, stream);
-  // cp.async moves 16-byte chunks: 8-element aligned rows and head dims
+  if (is_f32) return cudaSuccess;
+  // bf16 operands move in 16-byte chunks (cp.async, TMA): 8-element aligned
+  // rows and head dims
   const long long st[9] = {p.q_sb, p.q_st, p.q_sh, p.k_sb, p.k_ss, p.k_sh, p.v_sb, p.v_ss, p.v_sh};
   for (long long s : st)
     if (s % 8 != 0) return cudaErrorInvalidValue;
@@ -434,7 +437,14 @@ cudaError_t dispatch(const FwdParams& p, int is_f32, cudaStream_t stream) {
       reinterpret_cast<uintptr_t>(p.o) % 16 != 0 || p.o_st % 8 != 0) {
     return cudaErrorMisalignedAddress;
   }
-  return dispatch_dp<CAUSAL, false>(p, stream);
+  return cudaSuccess;
+}
+
+template <bool CAUSAL>
+cudaError_t dispatch(const FwdParams& p, int is_f32, cudaStream_t stream) {
+  const cudaError_t e = check_fwd(p, is_f32);
+  if (e != cudaSuccess) return e;
+  return is_f32 ? dispatch_dp<CAUSAL, true>(p, stream) : dispatch_dp<CAUSAL, false>(p, stream);
 }
 
 // strides: q (b, t, h), k (b, s, h), v (b, s, h), o (b, t, h), in elements.

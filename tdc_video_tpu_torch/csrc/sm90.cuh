@@ -1,4 +1,5 @@
-// Hopper (sm_90a) building blocks of the backward kernels K5 and K6: TMA
+// Hopper (sm_90a) building blocks of the wgmma kernels, the forward body of
+// K1 and K3 (flash_fwd_sm90.cuh) and the backward kernels K5 and K6: TMA
 // tensor maps and loads, mbarriers, wgmma shared-memory descriptors, the
 // wgmma instructions themselves and their fences, and warpgroup register
 // reallocation.
@@ -232,6 +233,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A-operand registers that an issued wgmma still reads: keeps
+// them live, unchanged, until after the wait that completes it.
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // Accumulator layout of a 64 x N f32 wgmma tile: thread t of the warpgroup

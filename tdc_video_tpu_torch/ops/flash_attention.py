@@ -10,11 +10,15 @@ Each of the JAX package's six Pallas kernels has a CUDA C++ counterpart here
     K5 flash_dq_kernel          dQ by recomputation            csrc/flash_dq_kernel.cu
     K6 flash_dkv_kernel         dK, dV and the GQA group sum   csrc/flash_dkv_kernel.cu
 
-K1-K4 are instances of one forward template (csrc/flash_fwd.cuh), K5 and K6
-share csrc/flash_bwd.cuh; their bf16 bodies are written for sm_90a (TMA,
-mbarriers, wgmma and warp specialisation, csrc/sm90.cuh).  All read q/dO
-[B, T, Hq, D] and k/v [B, S, Hkv, D] in place through their strides, so the
-JAX package's transposes to [B, H, T, D] are gone.  Each wrapper takes its plain PyTorch version only
+The bf16 bodies of K1 and K3 (head dims above 32) are one sm_90a forward
+template (csrc/flash_fwd_sm90.cuh), those of K5 and K6 share
+csrc/flash_bwd.cuh; all four are written with TMA, mbarriers, wgmma and warp
+specialisation (csrc/sm90.cuh).  K2, K4, K1 and K3 at head dims up to 32,
+and every f32 call, run the mma.sync or scalar bodies of csrc/flash_fwd.cuh.
+All read q/dO [B, T, Hq, D] and k/v [B, S, Hkv, D] in place through their
+strides, so the JAX package's transposes to [B, H, T, D] are gone; the
+sm_90a kernels read bf16 operands through 4-D TMA tensor maps whose strides
+`operand_strides` passes.  Each wrapper takes its plain PyTorch version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
 `launches` counts kernel launches.
 
@@ -31,6 +35,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from . import build
 
 NEG_INF = -1e30
 
@@ -194,7 +200,7 @@ def _check(q, k, v, same_len: bool = False, same_heads: bool = False, extra=()) 
         if t.dtype == torch.bfloat16 and (
             t.data_ptr() % 16 != 0 or any(s % 8 != 0 for s in t.stride()[:3])
         ):
-            # the bf16 kernels move operands in 16-byte chunks (cp.async)
+            # the bf16 kernels move operands in 16-byte chunks (cp.async, TMA)
             raise ValueError(f"{name} must be 16-byte aligned with strides divisible by 8, "
                              f"strides {t.stride()}")
     B, T, Hq, D = q.shape
@@ -216,17 +222,18 @@ def _check(q, k, v, same_len: bool = False, same_heads: bool = False, extra=()) 
 
 
 def tma_operand(t) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-    """The 4-D TMA tensor map that K5 and K6 build over a bf16 operand
-    [B, L, H, D]: dims innermost first (D, H, L, B) and the byte strides of
-    H, L and B, which `_launch_bwd` passes and csrc/sm90.cuh make_map uses as
-    they are.  A dim of size 1 gets the stride a packed tensor would have
-    there (its stride is never used).  Raises ValueError where a tensor map
-    cannot describe the operand: each stride a positive multiple of 16 bytes
-    below 2**40."""
+    """The 4-D TMA tensor map that the sm_90a kernels (K1, K3, K5, K6) build
+    over a bf16 operand [B, L, H, D]: dims innermost first (D, H, L, B) and
+    the byte strides of H, L and B, which the launch passes and csrc/sm90.cuh
+    make_map uses as they are.  A dim of size 1 gets the stride a packed
+    tensor would have there (its stride is never used).  Raises ValueError
+    where a tensor map cannot describe the operand: each stride a positive
+    multiple of 16 bytes below 2**40."""
     B, L, H, D = t.shape
+    sb, sl, sh = t.stride()[:3]
     dims = (D, H, L, B)
     strides, packed = [], 2 * D
-    for size, stride in zip(dims[1:], (t.stride(2), t.stride(1), t.stride(0))):
+    for size, stride in ((H, sh), (L, sl), (B, sb)):
         s = packed if size == 1 else 2 * stride
         if s % 16 != 0 or not 0 < s < 2**40:
             raise ValueError(f"a TMA tensor map cannot describe strides {t.stride()} of shape "
@@ -236,13 +243,25 @@ def tma_operand(t) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     return dims, tuple(strides)
 
 
-def bwd_operand_strides(t) -> Tuple[int, int, int]:
-    """The (batch, row, head) element strides `_launch_bwd` passes for q, k,
-    v or dO: for bf16, those of the operand's tensor map (tma_operand)."""
+def operand_strides(t) -> Tuple[int, int, int]:
+    """The (batch, row, head) element strides a launch of an sm_90a kernel
+    passes for q, k, v or dO: for bf16, those of the operand's tensor map
+    (tma_operand)."""
     if t.dtype != torch.bfloat16:
         return tuple(t.stride()[:3])
     sh, sl, sb = (s // 2 for s in tma_operand(t)[1])
     return sb, sl, sh
+
+
+def fwd_operand_strides(name: str, q, k, v) -> Tuple[int, ...]:
+    """The (batch, row, head) element strides of q, k and v that `_launch`
+    passes to forward kernel `name`: those of their tensor maps
+    (operand_strides) for K1 and K3, whose bf16 bodies read through TMA, the
+    tensors' own for K2 and K4.  Raises ValueError, before any launch, where
+    a tensor map cannot describe a bf16 operand of K1 or K3."""
+    if name in build.SM90:
+        return (*operand_strides(q), *operand_strides(k), *operand_strides(v))
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
 
 
 def _raise_on_error(lib, name: str, err: int) -> None:
@@ -252,15 +271,14 @@ def _raise_on_error(lib, name: str, err: int) -> None:
 
 def _launch(name: str, q, k, v, scale: float, causal: bool, with_lse: bool):
     """One forward kernel (K1-K4): (o [B,T,Hq,D], lse [B,Hq,T,1] f32 or None)."""
-    from . import build
-
     nhd = name in ("full_attention_nhd", "full_attention_nhd_seqq")
     _check(q, k, v, same_len=name != "flash_kernel", same_heads=nhd)
+    qkv_strides = fwd_operand_strides(name, q, k, v)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, T, 1), dtype=torch.float32, device=q.device) if with_lse else None
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    strides = (ctypes.c_int64 * 12)(*qkv_strides, *o.stride()[:3])
     lib = build.load(name)
     err = getattr(lib, build.entry_point(name))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -275,8 +293,6 @@ def _launch(name: str, q, k, v, scale: float, causal: bool, with_lse: bool):
 
 def _launch_bwd(name: str, q, k, v, do, lse, delta, scale: float, causal: bool):
     """One backward kernel: K5 returns dQ, K6 returns (dK, dV)."""
-    from . import build
-
     _check(q, k, v, extra=(("dO", do),))
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -288,7 +304,7 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, scale: float, causal: bool):
     dq = new((B, T, Hq, D)) if name == "flash_dq_kernel" else None
     dk, dv = (new((B, S, Hkv, D)), new((B, S, Hkv, D))) if name == "flash_dkv_kernel" else (None, None)
     st = lambda t: t.stride()[:3] if t is not None else (0, 0, 0)
-    strides = (ctypes.c_int64 * 21)(*(s for t in (q, k, v, do) for s in bwd_operand_strides(t)),
+    strides = (ctypes.c_int64 * 21)(*(s for t in (q, k, v, do) for s in operand_strides(t)),
                                     *st(dq), *st(dk), *st(dv))
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.load(name)

@@ -8,12 +8,14 @@ that has only PyTorch:
 
 (--noconftest: tests/conftest.py configures JAX.)  Tolerances: bf16 3e-2
 (kernel and plain version round P and O to bf16, at running and final row
-maxima), f32 1e-4 (summation order only), f32 lse 1e-3.  Backward kernels
+maxima), f32 1e-4 (summation order only), f32 lse 1e-3; K1's bf16 o at its
+sm_90a body's tile edges row by row, within 2e-2 of each query's o norm.  Backward kernels
 against their plain versions, row by row (each query's dQ, each key's dK
 and dV), as chip_smoke.py holds them: bf16 within 2e-2 of the row's norm
 (dQ, dK and dV are each rounded to bf16 once, from f32 sums taken in another
 order over P and dS rounded at the same places), f32 within 1e-4 of it.  The
-bf16 backward kernels are deterministic: two calls give the same bits.
+bf16 sm_90a kernels (K1, K3, K5, K6) are deterministic: two calls give the
+same bits.
 """
 
 import math
@@ -112,6 +114,78 @@ def test_bf16_kernel_rejects_misaligned_operands(cuda):
     with pytest.raises(ValueError, match="aligned"):
         tfa.full_attention_nhd(shifted, k, v, 0.125)
     assert tfa.launches["full_attention_nhd"] == 0
+
+
+# (B, T, S, Hq, Hkv, D, causal) for K1's sm_90a forward body (128 query
+# rows and 64 keys a block): T = 129, 200 and 1000, GQA groups 1, 3 and 7,
+# D = 64, 72 (padded to 80) and 128; causal with S > T (top-left aligned, as
+# a prefill into a longer cache) and with S == T; non-causal with T != S
+FWD_CASES = [(1, 129, 129, 7, 1, 128, True), (2, 129, 200, 3, 1, 64, True),
+             (1, 200, 264, 7, 1, 72, True), (2, 200, 200, 3, 3, 128, True),
+             (1, 1000, 1016, 6, 2, 128, True), (1, 1000, 1000, 7, 1, 64, True),
+             (1, 129, 300, 3, 1, 128, False), (2, 200, 145, 7, 1, 72, False),
+             (1, 1000, 777, 3, 3, 64, False)]
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_k1_forward_tile_edges(cuda, case):
+    """K1 in bf16 against its plain version: each query's o within 2e-2 of
+    its row norm (as chip_smoke.py holds it), lse within 1e-3."""
+    B, T, S, Hq, Hkv, D, causal = case
+    q, k, v = _qkv(14, B, T, S, Hq, Hkv, D, torch.bfloat16)
+    scale = 1 / math.sqrt(D)
+    tfa.reset_launches()
+    out, lse = tfa.flash_kernel(q, k, v, scale, causal)
+    ref, lse_ref = tfa.flash_attention_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert tfa.launches["flash_kernel"] == 1
+    _close(out, ref, 2e-2)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("N", [145, 729])
+def test_k3_forward_packed_views(cuda, N):
+    """K3 in bf16 on [B, N, H, D] views of packed [B, N, H * D] projections
+    (SigLIP, D = 72): within 3e-2 of its plain version."""
+    B, H, D = 2, 16, 72
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (B, N, H * D)).astype(np.float32))
+               .to("cuda", torch.bfloat16).view(B, N, H, D) for _ in range(3))
+    tfa.reset_launches()
+    out = tfa.full_attention_nhd_seqq(q, k, v, 1 / math.sqrt(D))
+    ref = tfa.full_attention_nhd_seqq_plain(q, k, v, 1 / math.sqrt(D))
+    torch.cuda.synchronize()
+    assert tfa.launches["full_attention_nhd_seqq"] == 1
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= 3e-2
+
+
+def test_forward_kernels_deterministic(cuda):
+    """K1 and K3 sum in a fixed order: two calls give the same bits."""
+    q, k, v = _qkv(16, 1, 1000, 1016, 6, 2, 128, torch.bfloat16)
+    first, second = (tfa.flash_kernel(q, k, v, 0.088, True) for _ in range(2))
+    p = _qkv(17, 2, 729, 729, 16, 16, 72, torch.bfloat16)
+    third, fourth = (tfa.full_attention_nhd_seqq(*p, 0.118) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(third, fourth)
+
+
+@pytest.mark.parametrize("name", ["flash_kernel", "full_attention_nhd_seqq"])
+def test_sm90_forward_rejects_misaligned_operands(cuda, name):
+    """K1 and K3 read through TMA tensor maps: an operand that starts off a
+    16-byte boundary raises before any launch instead of running."""
+    D = 128 if name == "flash_kernel" else 72
+    q, k, v = _qkv(18, 1, 145, 145, 4, 4, D, torch.bfloat16)
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")[1:].view(k.shape)
+    shifted.copy_(k)
+    tfa.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        if name == "flash_kernel":
+            tfa.flash_kernel(q, shifted, v, 0.088, True)
+        else:
+            tfa.full_attention_nhd_seqq(q, shifted, v, 0.118)
+    assert tfa.launches[name] == 0
 
 
 def _bwd_inputs(seed, B, T, Hq, Hkv, D, causal, dtype, valid=None, packed=False):

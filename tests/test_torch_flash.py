@@ -117,7 +117,7 @@ def test_dispatch_picks_the_jax_kernel(monkeypatch, T, S, Hq, Hkv, D, causal):
     assert [_JAX_BODY[s] for s in seen] == [tfa.select_kernel(T, S, Hq, Hkv, D, causal)]
 
 
-def test_k4_shapes_go_to_sdpa_on_the_card_path():
+def test_k4_shapes_run_k4_and_agree_with_jax():
     """K4 is ported: maskless K4 shapes now run K4 (its plain version on the
     CPU) and agree with the JAX dispatch.  Only a non-causal call with a
     mask still raises NotImplementedError in the dispatch (before any

@@ -1,21 +1,23 @@
-"""The host side of the sm_90a backward kernels K5 and K6, on the CPU: the
-4-D TMA tensor map each builds over a bf16 operand [B, L, H, D]
-(ops/flash_attention.py tma_operand) and the element strides the launch
-passes for it (bwd_operand_strides), which csrc/sm90.cuh make_map uses as
-they are, for the layouts the port passes: contiguous q/k/v/dO, the packed
-[B, N, H * D] tower projections viewed as [B, N, H, D], and views with dims
-of size 1."""
+"""The host side of the sm_90a kernels (the forward body of K1 and K3, the
+backward kernels K5 and K6), on the CPU: the 4-D TMA tensor map each builds
+over a bf16 operand [B, L, H, D] (ops/flash_attention.py tma_operand) and
+the element strides the launch passes for it (operand_strides, and
+fwd_operand_strides for the forward kernels), which csrc/sm90.cuh make_map
+uses as they are, for the layouts the port passes: contiguous q/k/v/dO, the
+packed [B, N, H * D] tower projections viewed as [B, N, H, D], a layer's
+view of the stacked KV cache, and views with dims of size 1."""
 
 import pytest
 import torch
 
-from tdc_video_tpu_torch.ops.flash_attention import bwd_operand_strides, tma_operand
+from tdc_video_tpu_torch.ops.flash_attention import (fwd_operand_strides, operand_strides,
+                                                     tma_operand)
 
 
 def _launch_strides_match_map(t, byte_strides):
     """The (batch, row, head) strides of the launch are the map's, in elements."""
     sh, sl, sb = byte_strides
-    assert bwd_operand_strides(t) == (sb // 2, sl // 2, sh // 2)
+    assert operand_strides(t) == (sb // 2, sl // 2, sh // 2)
 
 
 def test_contiguous_operand():
@@ -24,7 +26,7 @@ def test_contiguous_operand():
     assert dims == (64, 4, 145, 2)
     assert strides == (64 * 2, 4 * 64 * 2, 145 * 4 * 64 * 2)
     _launch_strides_match_map(t, strides)
-    assert bwd_operand_strides(t) == t.stride()[:3]
+    assert operand_strides(t) == t.stride()[:3]
 
 
 @pytest.mark.parametrize("H,D", [(16, 72), (24, 64)])
@@ -48,7 +50,7 @@ def test_size_one_dims_take_packed_strides():
     assert dims == (128, 1, 200, 1)
     assert strides == (128 * 2, 8 * 128 * 2, 8 * 128 * 2 * 200)
     _launch_strides_match_map(k, strides)
-    assert bwd_operand_strides(k) == (8 * 128 * 200, 8 * 128, 128)
+    assert operand_strides(k) == (8 * 128 * 200, 8 * 128, 128)
 
 
 def test_size_one_dim_with_zero_stride():
@@ -57,13 +59,13 @@ def test_size_one_dim_with_zero_stride():
     t = torch.zeros(145 * 4 * 64, dtype=torch.bfloat16).as_strided((1, 145, 4, 64), (0, 256, 64, 1))
     dims, strides = tma_operand(t)
     assert strides[2] == 145 * 4 * 64 * 2
-    assert bwd_operand_strides(t) == (145 * 4 * 64, 4 * 64, 64)
+    assert operand_strides(t) == (145 * 4 * 64, 4 * 64, 64)
 
 
 def test_f32_operands_pass_their_own_strides():
     """The f32 kernels index through plain strides: no tensor map."""
     t = torch.zeros(2, 30, 8, 16, dtype=torch.float32)[:, :, 3:4]
-    assert bwd_operand_strides(t) == t.stride()[:3]
+    assert operand_strides(t) == t.stride()[:3]
 
 
 @pytest.mark.parametrize("make", [
@@ -74,4 +76,63 @@ def test_operands_a_map_cannot_describe_raise(make):
     with pytest.raises(ValueError, match="TMA"):
         tma_operand(make())
     with pytest.raises(ValueError, match="TMA"):
-        bwd_operand_strides(make())
+        operand_strides(make())
+
+
+# ---------------------------------------------------------------------------
+# The forward kernels' operands (K1, K3 through tensor maps; K2, K4 not)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_k1_reads_a_layer_of_the_stacked_kv_cache(B):
+    """Serving prefills T rows into layer i's view cache["k"][i] of the
+    stacked [L, B, S, Hkv, D] cache (models/lm.py), S > T: the map's row
+    extent is the cache capacity S, its base the layer's slice, and the
+    launch passes the view's strides (the packed ones where B == 1)."""
+    L, S, T, Hkv, Hq, D = 3, 1432, 1416, 8, 24, 128
+    cache = torch.zeros(L, B, S, Hkv, D, dtype=torch.bfloat16)
+    k, v = cache[1], cache[2]
+    q = torch.zeros(B, T, Hq, D, dtype=torch.bfloat16)
+    assert k.data_ptr() - cache.data_ptr() == B * S * Hkv * D * 2  # a multiple of 16 bytes
+    dims, strides = tma_operand(k)
+    assert dims == (D, Hkv, S, B)
+    assert strides == (D * 2, Hkv * D * 2, S * Hkv * D * 2)
+    kv = (S * Hkv * D, Hkv * D, D)
+    assert fwd_operand_strides("flash_kernel", q, k, v) == (T * Hq * D, Hq * D, D) + kv + kv
+
+
+def test_k3_reads_the_packed_tower_projections():
+    """SigLIP's q, k and v are [B, N, H * D] projections viewed as [B, N, H,
+    D] (models/vit.py): K3's maps step D = 72 elements from head to head."""
+    B, N, H, D = 2, 729, 16, 72
+    q, k, v = (torch.zeros(B, N, H * D, dtype=torch.bfloat16).view(B, N, H, D) for _ in range(3))
+    assert fwd_operand_strides("full_attention_nhd_seqq", q, k, v) == (N * H * D, H * D, D) * 3
+
+
+def test_k1_size_one_head_takes_the_packed_stride():
+    """One KV head sliced out of a wider projection, batch 1: K1 passes the
+    map's packed strides for the size-1 dims, K4 the tensor's own."""
+    q = torch.zeros(1, 200, 3, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 200, 8, 128, dtype=torch.bfloat16)[:, :, 3:4]
+    st = fwd_operand_strides("flash_kernel", q, k, k)
+    assert st[3:6] == (8 * 128 * 200, 8 * 128, 128)
+    assert fwd_operand_strides("full_attention", q, k, k)[3:6] == k.stride()[:3]
+
+
+def test_f32_forward_operands_pass_their_own_strides():
+    """f32 calls of K1 and K3 take the scalar kernel: no tensor map."""
+    q = torch.zeros(2, 30, 8, 16, dtype=torch.float32)[:, :, 2:6]
+    assert fwd_operand_strides("flash_kernel", q, q, q) == q.stride()[:3] * 3
+
+
+@pytest.mark.parametrize("name", ["flash_kernel", "full_attention_nhd_seqq"])
+def test_forward_operands_a_map_cannot_describe_raise(name):
+    """K1 and K3 raise before any launch on an operand that a tensor map
+    cannot describe (a batch broadcast with stride 0), while K2, which reads
+    through cp.async, takes its strides as they are."""
+    q = torch.zeros(2, 145, 4, 72, dtype=torch.bfloat16)
+    k = torch.zeros(1, 145, 4, 72, dtype=torch.bfloat16).expand(2, 145, 4, 72)
+    with pytest.raises(ValueError, match="TMA"):
+        fwd_operand_strides(name, q, k, q)
+    assert fwd_operand_strides("full_attention_nhd", q, k, q)[3] == 0
