@@ -8,9 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    an nvcc build of all six kernel libraries from tdc_video_tpu_torch/csrc/
    (one nvcc per source, all started together), with ptxas's registers and
    spills (the log each library was built with); in the sm_90a libraries
-   (K1 and K3, whose bf16 body above head dim 32 is the wgmma template, K5
-   and K6) no bf16 kernel may spill, ptxas must not serialize a wgmma
-   (warnings C7511-C7513), and cuobjdump must find HGMMA (wgmma)
+   (all six: K1-K4, whose bf16 body above head dim 32 is the wgmma forward
+   template, K5 and K6) no bf16 kernel may spill, ptxas must not serialize
+   a wgmma (warnings C7511-C7513), and cuobjdump must find HGMMA (wgmma)
    instructions in each instance of their wgmma kernels;
 2. each kernel against its plain PyTorch version on the card, at its paths'
    shapes in bf16 (and a small f32 case), with error, time, the plain
@@ -29,7 +29,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 4. LM prefill of the same request with attn_impl="flash" and "xla" (plain
    sdpa): finite logits, the same argmax, a bounded difference;
 5. torch.profiler over each stage of one more answer (device busy share,
-   device time by kernel);
+   device time by kernel; K2's device time per launch in encode goes into
+   its entry of the kernels line beside `ms`, which includes the wrapper's
+   host work);
 6. the training path: the stage-2 video-SFT preset (f32 master params, bf16
    compute, towers frozen) at full width and depth, one synthetic sample of
    64 frames and a Llama-3 conversation padded to 8192 tokens.  First one
@@ -40,9 +42,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fifth micro-step under torch.profiler;
 7. the same preset with the towers trainable and the LM frozen: 2 optimizer
    steps of one micro-step each (the first update of a warmup from 0 has
-   learning rate 0), which run the tower backward (K4, K5, K6).  8 frames,
-   cut to 4 and then 2 if a step runs out of memory (the cut is printed, and
-   K4's row is measured again at the frame count that ran).
+   learning rate 0), which run the tower backward (K4, K5, K6), and a third
+   under torch.profiler (device time by kernel, busy share, K4's share).  8
+   frames, cut to 4 and then 2 if a step runs out of memory (the cut is
+   printed, and K4's row is measured again at the frame count that ran).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -166,7 +169,7 @@ def phase_device_build():
             raise AssertionError(f"{name}: the bf16 kernels spill {spills} bytes; "
                                  f"ptxas serialized the wgmma of {serialized}")
     # the sm_90a kernels run on wgmma: HGMMA instructions in the machine code
-    # of each (K1 and K3 at DP 64/80/128, K5, K6)
+    # of each (the forward template's instances in K1-K4, K5, K6)
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build.nvcc_path()),
                                                          "cuobjdump")
     for name, kernel in build.SM90.items():
@@ -589,10 +592,37 @@ def phase_flash_vs_xla(cfg, params, pred, frames):
         raise AssertionError("flash and xla prefill disagree")
 
 
-def profile_stage(tag: str, name: str, fn) -> None:
+# the port's kernels as torch.profiler names them: the forward template's
+# instances by (padded head dim, causal, lse), which tell K1-K4 apart
+_FWD_INSTANCE = re.compile(r"flash_fwd_bf16_sm90_kernel<(\d+), (true|false), (true|false)")
+
+
+def port_kernel(key: str):
+    """The library of a profiled kernel of the port (or None): K1 is the
+    causal instance, K4 the non-causal one with lse, K2 and K3 the
+    non-causal ones without at DP 64 and 80.  The four libraries share one
+    template, so the profile's name tells them apart only by these template
+    arguments: a non-causal K1 launch (none on the main paths, which run K1
+    causal) would be counted under K4."""
+    m = _FWD_INSTANCE.search(key)
+    if m:
+        dp, causal, lse = m.groups()
+        if causal == "true":
+            return "flash_kernel"
+        if lse == "true":
+            return "full_attention"
+        return "full_attention_nhd" if dp == "64" else "full_attention_nhd_seqq"
+    for name in ("flash_dq", "flash_dkv"):
+        if f"{name}_bf16_kernel" in key:
+            return f"{name}_kernel"
+    return None
+
+
+def profile_stage(tag: str, name: str, fn):
     """torch.profiler over one call of fn: wall time, the device's busy time
     and share, the 8 largest device items by kernel name, and the device
-    time of each of the port's kernels."""
+    time of each of the port's kernels.  Returns {library: (device ms,
+    launches)} of the port's bf16 wgmma kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -610,13 +640,23 @@ def profile_stage(tag: str, name: str, fn) -> None:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     # the port's own kernels, wherever they rank
     ours = [e for e in kernels if e.key.startswith("void tdc::")]
+    libs = {}
     for e in sorted(ours, key=lambda e: e.self_device_time_total, reverse=True):
-        log(f"[{tag}]   port kernel {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        log(f"[{tag}]   port kernel {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:110]}")
+        lib = port_kernel(e.key)
+        if lib is not None:
+            ms, n = libs.get(lib, (0.0, 0))
+            libs[lib] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for lib, (ms, n) in libs.items():
+        log(f"[{tag}]   {lib}: {ms:.3f} ms device in {n} launches ({ms / n:.4f} ms each), "
+            f"{100 * ms / 1e3 / max(busy, 1e-12):.1f}% of device busy")
+    return libs
 
 
-def phase_profile(pred, frames) -> None:
+def phase_profile(pred, frames):
     """torch.profiler over the stages of one more `answer` (encode; compress
-    + prefill; compress + prefill + decode)."""
+    + prefill; compress + prefill + decode); returns each stage's port
+    kernels (profile_stage)."""
     from tdc_video_tpu_torch.serving.generate import generate_encoded, prefill_encoded
 
     req = {}
@@ -628,8 +668,7 @@ def phase_profile(pred, frames) -> None:
         ("compress+prefill+decode", lambda: generate_encoded(pred.cfg, pred.params, **req["gen"],
                                                              attn_impl=pred.attn_impl)),
     ]
-    for name, fn in stages:
-        profile_stage("5", name, fn)
+    return {name: profile_stage("5", name, fn) for name, fn in stages}
 
 
 # ---------------------------------------------------------------------------
@@ -891,6 +930,10 @@ def phase_tower_train(cfg, params):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, max_memory_reserved "
         f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB of "
         f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+    # a third step (one more update) under the profiler, at the frames that ran
+    profile_stage("7", f"micro-step 3 under torch.profiler ({n_frames} frames)",
+                  lambda: trainer.train_step(batch))
+    del trainer
     zero_grad = set()  # after zero_grad every grad is 0: judge the towers by their change
     _check_changes("7", params, snap, {"siglip", "dino"}, {"lm"}, zero_grad)
     return n_frames, counts
@@ -924,7 +967,9 @@ def main() -> int:
     train_rows = phase_train_kernels()
     cfg, params, pred, frames = phase_main_path(rows)
     phase_flash_vs_xla(cfg, params, pred, frames)
-    phase_profile(pred, frames)
+    # K2's device time per launch in encode, beside its `ms` (host work included)
+    ms, n = phase_profile(pred, frames)["encode"]["full_attention_nhd"]
+    next(r for r in rows if r["name"] == "full_attention_nhd")["device_ms"] = ms / n
     del params, pred
     gc.collect()
     torch.cuda.empty_cache()

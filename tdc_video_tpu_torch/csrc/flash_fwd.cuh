@@ -3,7 +3,7 @@
 // One block computes one (batch, query head, 64-row query tile). Its four
 // warps own 16 query rows each. The block walks the KV axis in tiles of 64
 // keys and keeps the running row max and row sum in f32 (online softmax).
-// The bf16 body of K1 and K3 at head dims above 32 is the sm_90a template of
+// The bf16 body of all four at head dims above 32 is the sm_90a template of
 // flash_fwd_sm90.cuh instead, with the same semantics and checks.
 //
 // Semantics (what every TPU kernel it replaces computes):
@@ -24,7 +24,7 @@
 // up to DP, a multiple of 16, which is the K-step of a bf16 mma.
 //
 // Two instances of that structure:
-//   * bf16 (K2, K4, and K1 and K3 at D <= 32): Q, K and V tiles go global -> shared memory by
+//   * bf16 at D <= 32 (K1-K4): Q, K and V tiles go global -> shared memory by
 //     cp.async (16 bytes a thread, K/V double-buffered so the next tile's
 //     load overlaps this tile's math), shared -> registers by ldmatrix, and
 //     through the tensor cores with mma.sync m16n8k16 (f32 accumulate). S, P
@@ -409,14 +409,14 @@ cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Head dims are zero-padded up to the next instantiated width.
-template <bool CAUSAL, bool F32>
-cudaError_t dispatch_dp(const FwdParams& p, cudaStream_t stream) {
-  if (p.D <= 16) return launch<16, CAUSAL, F32>(p, stream);
-  if (p.D <= 32) return launch<32, CAUSAL, F32>(p, stream);
-  if (p.D <= 64) return launch<64, CAUSAL, F32>(p, stream);
-  if (p.D <= 80) return launch<80, CAUSAL, F32>(p, stream);
-  if (p.D <= 128) return launch<128, CAUSAL, F32>(p, stream);
+// f32 head dims are zero-padded up to the next instantiated width.
+template <bool CAUSAL>
+cudaError_t dispatch_f32(const FwdParams& p, cudaStream_t stream) {
+  if (p.D <= 16) return launch<16, CAUSAL, true>(p, stream);
+  if (p.D <= 32) return launch<32, CAUSAL, true>(p, stream);
+  if (p.D <= 64) return launch<64, CAUSAL, true>(p, stream);
+  if (p.D <= 80) return launch<80, CAUSAL, true>(p, stream);
+  if (p.D <= 128) return launch<128, CAUSAL, true>(p, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -438,13 +438,6 @@ inline cudaError_t check_fwd(const FwdParams& p, int is_f32) {
     return cudaErrorMisalignedAddress;
   }
   return cudaSuccess;
-}
-
-template <bool CAUSAL>
-cudaError_t dispatch(const FwdParams& p, int is_f32, cudaStream_t stream) {
-  const cudaError_t e = check_fwd(p, is_f32);
-  if (e != cudaSuccess) return e;
-  return is_f32 ? dispatch_dp<CAUSAL, true>(p, stream) : dispatch_dp<CAUSAL, false>(p, stream);
 }
 
 // strides: q (b, t, h), k (b, s, h), v (b, s, h), o (b, t, h), in elements.

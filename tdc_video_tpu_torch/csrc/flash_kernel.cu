@@ -34,10 +34,11 @@ extern "C" int tdc_flash_kernel_fwd(const void* q, const void* k, const void* v,
                                     float* lse, int is_f32, int B, int T, int S, int Hq,
                                     int Hkv, int D, int kv_len, const long long* strides,
                                     int causal, float scale, void* stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);  // K1 always writes it
   const tdc::FwdParams p =
       tdc::make_params(q, k, v, o, lse, B, T, S, Hq, Hkv, D, kv_len, strides, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      causal ? tdc::dispatch_sm90<true>(p, is_f32, st) : tdc::dispatch_sm90<false>(p, is_f32, st);
+  const cudaError_t e = causal ? tdc::dispatch_sm90<true, true>(p, is_f32, st)
+                               : tdc::dispatch_sm90<false, true>(p, is_f32, st);
   return static_cast<int>(e);
 }

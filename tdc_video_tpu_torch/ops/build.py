@@ -29,10 +29,12 @@ SOURCES = ("flash_kernel", "full_attention_nhd", "full_attention_nhd_seqq", "ful
            "flash_dq_kernel", "flash_dkv_kernel")
 BACKWARD = ("flash_dq_kernel", "flash_dkv_kernel")
 # the libraries whose bf16 kernels run on wgmma (sm_90a), each with the name
-# of those kernels: K1 and K3 at head dims above 32 (csrc/flash_fwd_sm90.cuh),
-# K5 and K6
+# of those kernels: the four forward kernels K1-K4 at head dims above 32
+# (csrc/flash_fwd_sm90.cuh), K5 and K6
 SM90 = {"flash_kernel": "flash_fwd_bf16_sm90_kernel",
+        "full_attention_nhd": "flash_fwd_bf16_sm90_kernel",
         "full_attention_nhd_seqq": "flash_fwd_bf16_sm90_kernel",
+        "full_attention": "flash_fwd_bf16_sm90_kernel",
         "flash_dq_kernel": "flash_dq_bf16_kernel", "flash_dkv_kernel": "flash_dkv_bf16_kernel"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -10,15 +10,17 @@ Each of the JAX package's six Pallas kernels has a CUDA C++ counterpart here
     K5 flash_dq_kernel          dQ by recomputation            csrc/flash_dq_kernel.cu
     K6 flash_dkv_kernel         dK, dV and the GQA group sum   csrc/flash_dkv_kernel.cu
 
-The bf16 bodies of K1 and K3 (head dims above 32) are one sm_90a forward
-template (csrc/flash_fwd_sm90.cuh), those of K5 and K6 share
-csrc/flash_bwd.cuh; all four are written with TMA, mbarriers, wgmma and warp
-specialisation (csrc/sm90.cuh).  K2, K4, K1 and K3 at head dims up to 32,
-and every f32 call, run the mma.sync or scalar bodies of csrc/flash_fwd.cuh.
-All read q/dO [B, T, Hq, D] and k/v [B, S, Hkv, D] in place through their
-strides, so the JAX package's transposes to [B, H, T, D] are gone; the
-sm_90a kernels read bf16 operands through 4-D TMA tensor maps whose strides
-`operand_strides` passes.  Each wrapper takes its plain PyTorch version only
+The bf16 bodies of the four forward kernels K1-K4 (head dims above 32) are
+one sm_90a template (csrc/flash_fwd_sm90.cuh: a producer warp feeding a TMA
+ring, consumer warpgroups running both products as wgmma, an instance per
+padded head dim, the one at 64 tuned for the towers' short sequences), those
+of K5 and K6 share csrc/flash_bwd.cuh; all are written with TMA, mbarriers,
+wgmma and warp specialisation (csrc/sm90.cuh).  At head dims up to 32 the
+forward kernels keep the mma.sync body of csrc/flash_fwd.cuh, and every f32
+call runs its scalar body.  All read q/dO [B, T, Hq, D] and k/v [B, S, Hkv,
+D] in place through their strides, so the JAX package's transposes to [B, H,
+T, D] are gone; bf16 operands are read through 4-D TMA tensor maps whose
+strides `operand_strides` passes.  Each wrapper takes its plain PyTorch version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
 `launches` counts kernel launches.
 
@@ -222,7 +224,7 @@ def _check(q, k, v, same_len: bool = False, same_heads: bool = False, extra=()) 
 
 
 def tma_operand(t) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-    """The 4-D TMA tensor map that the sm_90a kernels (K1, K3, K5, K6) build
+    """The 4-D TMA tensor map that the sm_90a kernels (K1-K6) build
     over a bf16 operand [B, L, H, D]: dims innermost first (D, H, L, B) and
     the byte strides of H, L and B, which the launch passes and csrc/sm90.cuh
     make_map uses as they are.  A dim of size 1 gets the stride a packed
@@ -256,12 +258,13 @@ def operand_strides(t) -> Tuple[int, int, int]:
 def fwd_operand_strides(name: str, q, k, v) -> Tuple[int, ...]:
     """The (batch, row, head) element strides of q, k and v that `_launch`
     passes to forward kernel `name`: those of their tensor maps
-    (operand_strides) for K1 and K3, whose bf16 bodies read through TMA, the
-    tensors' own for K2 and K4.  Raises ValueError, before any launch, where
-    a tensor map cannot describe a bf16 operand of K1 or K3."""
-    if name in build.SM90:
-        return (*operand_strides(q), *operand_strides(k), *operand_strides(v))
-    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    (operand_strides), since the bf16 bodies of all four forward kernels read
+    through TMA.  Raises ValueError, before any launch, where a tensor map
+    cannot describe a bf16 operand (a batch broadcast with stride 0, a
+    stride off a 16-byte multiple); f32 operands pass their own strides."""
+    if build.SM90.get(name) != "flash_fwd_bf16_sm90_kernel":
+        raise ValueError(f"{name} is not an sm_90a forward kernel")
+    return (*operand_strides(q), *operand_strides(k), *operand_strides(v))
 
 
 def _raise_on_error(lib, name: str, err: int) -> None:

@@ -14,8 +14,8 @@ against their plain versions, row by row (each query's dQ, each key's dK
 and dV), as chip_smoke.py holds them: bf16 within 2e-2 of the row's norm
 (dQ, dK and dV are each rounded to bf16 once, from f32 sums taken in another
 order over P and dS rounded at the same places), f32 within 1e-4 of it.  The
-bf16 sm_90a kernels (K1, K3, K5, K6) are deterministic: two calls give the
-same bits.
+bf16 sm_90a kernels (K1-K6) are deterministic: two calls give the same
+bits.
 """
 
 import math
@@ -160,22 +160,78 @@ def test_k3_forward_packed_views(cuda, N):
     assert float((out.float() - ref.float()).abs().max()) <= 3e-2
 
 
+# (name, N, D) for K2 and K4 on packed [B, N, H * D] projections: the
+# towers' N (729 and 730: 12 key tiles of 64, the last mostly padding), a
+# short ragged N, and N a multiple of the 64- and 128-key tiles (640, 768),
+# where no tile is ragged and a mask that assumed one would show
+PACKED_CASES = [(name, N, D) for N in (145, 729, 730, 640, 768)
+                for name, D in (("full_attention_nhd", 64), ("full_attention", 64),
+                                ("full_attention", 72))]
+
+
+@pytest.mark.parametrize("name,N,D", PACKED_CASES)
+def test_k2_k4_forward_packed_views(cuda, name, N, D):
+    """K2 and K4 in bf16 on [B, N, H, D] views of packed [B, N, H * D]
+    projections: o within 3e-2 of the plain version, K4's lse within 1e-3
+    on every row, and no row at or past N written (o is allocated by the
+    wrapper, so a stray store would land in another row of it)."""
+    B, H = 2, 24 if D == 64 else 16
+    rng = np.random.default_rng(20 + N)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (B, N, H * D)).astype(np.float32))
+               .to("cuda", torch.bfloat16).view(B, N, H, D) for _ in range(3))
+    scale = 1 / math.sqrt(D)
+    tfa.reset_launches()
+    if name == "full_attention":
+        out, lse = tfa.full_attention(q, k, v, scale)
+        ref, lse_ref = tfa.full_attention_plain(q, k, v, scale)
+    else:
+        out = tfa.full_attention_nhd(q, k, v, scale)
+        ref = tfa.full_attention_nhd_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert tfa.launches[name] == 1
+    assert out.shape == (B, N, H, D) and bool(torch.isfinite(out).all())
+    assert float((out.float() - ref.float()).abs().max()) <= 3e-2
+    if name == "full_attention":
+        assert lse.shape == (B, H, N, 1) and lse.dtype == torch.float32
+        assert float((lse - lse_ref).abs().amax(dim=(0, 1, 3)).max()) <= 1e-3
+
+
+def test_k4_forward_gqa(cuda):
+    """K4 serves _gqa_fwd's non-causal T == S <= 1024 calls with Hq != Hkv:
+    query head h reads KV head h / (Hq / Hkv), at both tower head dims."""
+    for D in (64, 72):
+        q, k, v = _qkv(21, 2, 730, 730, 12, 4, D, torch.bfloat16)
+        out, lse = tfa.full_attention(q, k, v, 1 / math.sqrt(D))
+        ref, lse_ref = tfa.full_attention_plain(q, k, v, 1 / math.sqrt(D))
+        torch.cuda.synchronize()
+        assert float((out.float() - ref.float()).abs().max()) <= 3e-2
+        assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
 def test_forward_kernels_deterministic(cuda):
-    """K1 and K3 sum in a fixed order: two calls give the same bits."""
+    """K1-K4 sum in a fixed order: two calls give the same bits (K4's lse
+    too)."""
     q, k, v = _qkv(16, 1, 1000, 1016, 6, 2, 128, torch.bfloat16)
     first, second = (tfa.flash_kernel(q, k, v, 0.088, True) for _ in range(2))
     p = _qkv(17, 2, 729, 729, 16, 16, 72, torch.bfloat16)
     third, fourth = (tfa.full_attention_nhd_seqq(*p, 0.118) for _ in range(2))
+    d = _qkv(19, 2, 730, 730, 24, 24, 64, torch.bfloat16)
+    fifth, sixth = (tfa.full_attention_nhd(*d, 0.125) for _ in range(2))
+    k4 = [tfa.full_attention(*x, s) for x, s in ((d, 0.125), (p, 0.118)) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     assert torch.equal(third, fourth)
+    assert torch.equal(fifth, sixth)
+    for a, b in (k4[:2], k4[2:]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-@pytest.mark.parametrize("name", ["flash_kernel", "full_attention_nhd_seqq"])
+@pytest.mark.parametrize("name", ["flash_kernel", "full_attention_nhd", "full_attention_nhd_seqq",
+                                  "full_attention"])
 def test_sm90_forward_rejects_misaligned_operands(cuda, name):
-    """K1 and K3 read through TMA tensor maps: an operand that starts off a
+    """K1-K4 read through TMA tensor maps: an operand that starts off a
     16-byte boundary raises before any launch instead of running."""
-    D = 128 if name == "flash_kernel" else 72
+    D = {"flash_kernel": 128, "full_attention_nhd": 64}.get(name, 72)
     q, k, v = _qkv(18, 1, 145, 145, 4, 4, D, torch.bfloat16)
     shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")[1:].view(k.shape)
     shifted.copy_(k)
@@ -184,7 +240,7 @@ def test_sm90_forward_rejects_misaligned_operands(cuda, name):
         if name == "flash_kernel":
             tfa.flash_kernel(q, shifted, v, 0.088, True)
         else:
-            tfa.full_attention_nhd_seqq(q, shifted, v, 0.118)
+            getattr(tfa, name)(q, shifted, v, 1 / math.sqrt(D))
     assert tfa.launches[name] == 0
 
 

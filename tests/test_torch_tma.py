@@ -1,4 +1,4 @@
-"""The host side of the sm_90a kernels (the forward body of K1 and K3, the
+"""The host side of the sm_90a kernels (the forward body of K1-K4, the
 backward kernels K5 and K6), on the CPU: the 4-D TMA tensor map each builds
 over a bf16 operand [B, L, H, D] (ops/flash_attention.py tma_operand) and
 the element strides the launch passes for it (operand_strides, and
@@ -80,7 +80,7 @@ def test_operands_a_map_cannot_describe_raise(make):
 
 
 # ---------------------------------------------------------------------------
-# The forward kernels' operands (K1, K3 through tensor maps; K2, K4 not)
+# The forward kernels' operands (K1-K4, all through tensor maps)
 # ---------------------------------------------------------------------------
 
 
@@ -112,12 +112,13 @@ def test_k3_reads_the_packed_tower_projections():
 
 def test_k1_size_one_head_takes_the_packed_stride():
     """One KV head sliced out of a wider projection, batch 1: K1 passes the
-    map's packed strides for the size-1 dims, K4 the tensor's own."""
+    map's packed strides for the size-1 dims, and so does K4, whose bf16
+    body reads through tensor maps too (before, K4 took the tensor's own)."""
     q = torch.zeros(1, 200, 3, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 200, 8, 128, dtype=torch.bfloat16)[:, :, 3:4]
     st = fwd_operand_strides("flash_kernel", q, k, k)
     assert st[3:6] == (8 * 128 * 200, 8 * 128, 128)
-    assert fwd_operand_strides("full_attention", q, k, k)[3:6] == k.stride()[:3]
+    assert fwd_operand_strides("full_attention", q, k, k) == st
 
 
 def test_f32_forward_operands_pass_their_own_strides():
@@ -126,13 +127,39 @@ def test_f32_forward_operands_pass_their_own_strides():
     assert fwd_operand_strides("flash_kernel", q, q, q) == q.stride()[:3] * 3
 
 
-@pytest.mark.parametrize("name", ["flash_kernel", "full_attention_nhd_seqq"])
+@pytest.mark.parametrize("name", ["flash_kernel", "full_attention_nhd", "full_attention_nhd_seqq",
+                                  "full_attention"])
 def test_forward_operands_a_map_cannot_describe_raise(name):
-    """K1 and K3 raise before any launch on an operand that a tensor map
-    cannot describe (a batch broadcast with stride 0), while K2, which reads
-    through cp.async, takes its strides as they are."""
+    """Every forward kernel (K1-K4) raises before any launch on a bf16
+    operand that a tensor map cannot describe: a batch broadcast with stride
+    0, or a head stride off a 16-byte multiple.  K2, which read through
+    cp.async before its bf16 body moved to the sm_90a template, took a
+    stride-0 batch as it was; it raises now too."""
     q = torch.zeros(2, 145, 4, 72, dtype=torch.bfloat16)
     k = torch.zeros(1, 145, 4, 72, dtype=torch.bfloat16).expand(2, 145, 4, 72)
     with pytest.raises(ValueError, match="TMA"):
         fwd_operand_strides(name, q, k, q)
-    assert fwd_operand_strides("full_attention_nhd", q, k, q)[3] == 0
+    odd = torch.zeros(2, 145, 4, 76, dtype=torch.bfloat16)[..., :72]  # 152-byte head stride
+    with pytest.raises(ValueError, match="TMA"):
+        fwd_operand_strides(name, q, q, odd)
+
+
+def test_forward_strides_reject_a_backward_kernel():
+    """The forward rule is asked only for a forward kernel: K5 passes its
+    operands' strides through operand_strides in the backward launch."""
+    q = torch.zeros(2, 145, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not an sm_90a forward kernel"):
+        fwd_operand_strides("flash_dq_kernel", q, q, q)
+
+
+@pytest.mark.parametrize("H,D", [(24, 64), (16, 72)])
+def test_k4_reads_the_packed_tower_projections(H, D):
+    """K4 recomputes the tower attention in the backward on the same packed
+    [B, N, H * D] projections K2 and K3 read (DINOv2 D = 64, SigLIP D = 72):
+    its maps step D elements from head to head (not the padded 64 or 80),
+    N * H * D from frame to frame."""
+    B, N = 8, 730 if D == 64 else 729
+    q, k, v = (torch.zeros(B, N, H * D, dtype=torch.bfloat16).view(B, N, H, D) for _ in range(3))
+    assert tma_operand(q)[0] == (D, H, N, B)
+    assert fwd_operand_strides("full_attention", q, k, v) == (N * H * D, H * D, D) * 3
+    assert fwd_operand_strides("full_attention_nhd", q, k, v) == (N * H * D, H * D, D) * 3
