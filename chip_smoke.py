@@ -45,7 +45,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    learning rate 0), which run the tower backward (K4, K5, K6), and a third
    under torch.profiler (device time by kernel, busy share, K4's share).  8
    frames, cut to 4 and then 2 if a step runs out of memory (the cut is
-   printed, and K4's row is measured again at the frame count that ran).
+   printed, and K4's row is measured again at the frame count that ran);
+8. checkpoint and demo: TDC-Llama3.2-3B at full width, its depths cut to
+   4 LM, 4 SigLIP and 4 DINOv2 layers (an f32 checkpoint at full depth is
+   about 20 GB), initialised from the seed and written with
+   convert/to_hf.save_checkpoint_dir into a temporary directory; loaded back
+   with builder.load_pretrained_model as the demo loads it (bf16 compute,
+   f32 weights; seconds, GB/s, peak device memory), the loaded weights
+   bitwise equal to the in-memory ones and the answer token-identical; the
+   same model on the default host preprocessing path (its encode time beside
+   the device path's; where PIL is installed, the port's copy of its bicubic
+   resize held to it bit for bit on every frame at both tower sizes and
+   timed beside it); and cli/demo.run on a 16 s clip from media.io.encode_test_video,
+   decoded at 1 fps, answering on the card with K1-K3 launched.  Whether
+   the machine has FFmpeg's libraries is asked of pkg-config before the
+   phase: without them the clip leg alone is skipped, with pkg-config's
+   message on its own line.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -63,6 +78,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -541,7 +557,10 @@ def phase_main_path(rows):
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"[3] init_tdc {n_params / 1e9:.3f} B params bf16 in {time.perf_counter() - t0:.1f} s")
     frames = synth_frames(SEED)
-    pred = TDCPredictor(cfg, params, ByteTokenizer(), bert_tokenizer=None, device=dev)
+    # the device preprocessing, which phases 3-5 have always timed (the
+    # predictor's default is the host path, which phase 8 times)
+    pred = TDCPredictor(cfg, params, ByteTokenizer(), bert_tokenizer=None, device_preprocess=True,
+                        device=dev)
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
@@ -939,6 +958,217 @@ def phase_tower_train(cfg, params):
     return n_frames, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8
+# ---------------------------------------------------------------------------
+
+# the depths phase 8's checkpoint is cut to (widths stay the preset's)
+CKPT_LAYERS = {"lm": 4, "siglip": 4, "dino": 4}
+# the demo's clip: 16 s at 25 fps gives 16 frames at 1 fps
+CLIP = {"w": 160, "h": 120, "fps": 25.0, "n_frames": 400}
+MAIN_KERNELS = ("flash_kernel", "full_attention_nhd", "full_attention_nhd_seqq")
+
+
+def _answer_launches(pred, frames, tag):
+    """One answer with the launch counters set to 0 just before and read
+    just after; fails unless K1-K3 ran.  Returns (the answer's ids, the
+    counts)."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = dict(fa.launches)
+    st = pred.stats
+    log(f"[8] {tag}: ids {st.last_ids}; wall {wall:.3f} s: encode {st.encode_s:.3f} s, "
+        f"compress+prefill {st.prefill_s:.3f} s, decode {st.decode_s:.3f} s; launches {json.dumps(counts)}")
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels {missing} were not launched")
+    return list(st.last_ids), counts
+
+
+def _check_pil_copy(frames, sizes):
+    """Where PIL is installed, the port's numpy copy of its bicubic resize
+    against PIL itself, bit for bit, on every frame padded to square, at
+    each tower size; the seconds of each beside the other."""
+    import importlib.util
+
+    from tdc_video_tpu_torch.data.images import expand2square, pil_bicubic_resize
+
+    if importlib.util.find_spec("PIL") is None:
+        log("[8] PIL is not installed: the bicubic copy is not held to PIL here")
+        return
+    import PIL
+    from PIL import Image
+
+    squares = [expand2square(f, (127, 127, 127)) for f in frames]
+    for size in sizes:
+        t0 = time.perf_counter()
+        ref = [np.asarray(Image.fromarray(sq).resize((size, size), Image.BICUBIC)) for sq in squares]
+        pil_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = [pil_bicubic_resize(sq, size, size) for sq in squares]
+        copy_s = time.perf_counter() - t0
+        n_diff = sum(int((a != b).sum()) for a, b in zip(out, ref))
+        log(f"[8] PIL {PIL.__version__} bicubic {len(squares)} frames {squares[0].shape[0]} -> "
+            f"{size}: the port's copy {copy_s:.3f} s, PIL {pil_s:.3f} s on the host; it differs in "
+            f"{n_diff} of {len(ref) * ref[0].size} values")
+        if n_diff:
+            raise AssertionError("the port's bicubic resize differs from PIL's")
+
+
+def phase_checkpoint(has_ffmpeg: bool, ffmpeg_msg: str):
+    """Checkpoint round trip, the host path and the demo (module docstring,
+    phase 8).  Returns the launch counts of the loaded checkpoint's answer
+    and of the demo's (None where the machine has no FFmpeg libraries)."""
+    from tdc_video_tpu_torch.config import tdc_llama32_3b
+
+    full = tdc_llama32_3b()
+    cfg = dataclasses.replace(
+        full, lm=dataclasses.replace(full.lm, num_layers=CKPT_LAYERS["lm"]),
+        siglip=dataclasses.replace(full.siglip, num_layers=CKPT_LAYERS["siglip"]),
+        dino=dataclasses.replace(full.dino, num_layers=CKPT_LAYERS["dino"]))
+    log(f"[8] checkpoint: TDC-Llama3.2-3B at full width (hidden {cfg.lm.hidden_size}, heads "
+        f"{cfg.lm.num_heads}/{cfg.lm.num_kv_heads}, vocab {cfg.lm.vocab_size}, SigLIP "
+        f"{cfg.siglip.hidden_size}, DINOv2 {cfg.dino.hidden_size}); depth cut: LM "
+        f"{full.lm.num_layers} -> {cfg.lm.num_layers}, SigLIP {full.siglip.num_layers} -> "
+        f"{cfg.siglip.num_layers}, DINOv2 {full.dino.num_layers} -> {cfg.dino.num_layers} layers")
+    with tempfile.TemporaryDirectory(prefix="tdc_ckpt_") as tmp:
+        path = os.path.join(tmp, "TDC-Llama3.2-3B-cut")
+        counts = _round_trip_and_host_path(cfg, path)
+        if not has_ffmpeg:
+            log(f"[8] clip leg skipped: pkg-config finds no FFmpeg libraries on this machine: "
+                f"{' | '.join(ffmpeg_msg.splitlines())}")
+            return counts, None
+        return counts, _demo_clip(path, os.path.join(tmp, "clip.mp4"))
+
+
+def _round_trip_and_host_path(cfg, path):
+    """Legs 1-4: write the checkpoint, load it as the demo does, hold it and
+    its answer to the in-memory weights, then answer on the host path."""
+    from tdc_video_tpu_torch.builder import load_pretrained_model
+    from tdc_video_tpu_torch.convert.to_hf import save_checkpoint_dir
+    from tdc_video_tpu_torch.data.images import process_frames
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.model import init_tdc
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    dev = torch.device(DEVICE)
+    params = init_tdc(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint_dir(params, cfg, path)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(path, "model.safetensors"))
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[8] save_checkpoint_dir: {n_params} params, {nbytes} bytes ({nbytes / 1e9:.3f} GB, f32) "
+        f"in {save_s:.3f} s")
+    # the in-memory reference: the f32 weights just written
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # as cli/demo.run loads: bf16 compute, the weights in cfg.param_dtype (f32)
+    _, model, _, _ = load_pretrained_model(path, load_tokenizer=False, dtype=torch.bfloat16,
+                                           device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[8] load_pretrained_model (dtype bf16, weights {model.cfg.param_dtype}): {load_s:.3f} s, "
+        f"{nbytes / load_s / 1e9:.3f} GB/s of checkpoint, peak device memory {peak / 2**30:.3f} GiB "
+        f"(of which {held / 2**30:.3f} GiB the in-memory reference held before the load)")
+    if model.cfg != cfg:
+        raise AssertionError(f"config read back differs: {model.cfg} vs {cfg}")
+    n_leaves, diff = _compare_trees(model.params, params)
+    log(f"[8] loaded weights vs in-memory: {n_leaves} leaves, {len(diff)} differ")
+    if diff:
+        raise AssertionError(f"loaded weights differ from the in-memory ones: {diff[:5]}")
+
+    frames = synth_frames(SEED)
+    mem = TDCPredictor(cfg, params, ByteTokenizer(), device_preprocess=True, device=dev)
+    loaded = TDCPredictor(model.cfg, model.params, ByteTokenizer(), device_preprocess=True,
+                          device=dev)
+    for pred in (mem, loaded):  # first answers pay one-time costs
+        pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+    ids_mem, _ = _answer_launches(mem, frames, "in-memory, device preprocessing")
+    ids_dev, counts = _answer_launches(loaded, frames, "loaded checkpoint, device preprocessing")
+    if ids_dev != ids_mem:
+        raise AssertionError(f"the loaded model answers {ids_dev}, the in-memory one {ids_mem}")
+    # a random model at this depth may repeat one token: the prefill logits
+    # are held too, bit for bit (same weights, same deterministic kernels)
+    req = loaded.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+    logits = [prefill_encoded(p.cfg, p.params, **req["gen"], attn_impl=p.attn_impl)[0]
+              for p in (mem, loaded)]
+    if not torch.equal(*logits):
+        raise AssertionError("prefill logits of the loaded and in-memory models differ")
+    log(f"[8] round trip: the loaded model's answer is token-identical to the in-memory one "
+        f"and its prefill logits {tuple(logits[0].shape)} bitwise equal")
+    dev_encode = loaded.stats.encode_s
+
+    host = TDCPredictor(model.cfg, model.params, ByteTokenizer(), device=dev)  # the default path
+    if host.device_preprocess:
+        raise AssertionError("the predictor's default is not the host path")
+    t0 = time.perf_counter()
+    process_frames(list(frames), model.cfg)
+    prep_s = time.perf_counter() - t0
+    ids_host, _ = _answer_launches(host, frames, "loaded checkpoint, host preprocessing")
+    log(f"[8] host path: process_frames of {len(frames)} {FRAME_H}x{FRAME_W} frames {prep_s:.3f} s "
+        f"on the host; encode {host.stats.encode_s:.3f} s (host path) vs {dev_encode:.3f} s "
+        f"(device path); answers {'identical' if ids_host == ids_dev else 'differ'} "
+        f"({ids_host} vs {ids_dev})")
+    _check_pil_copy(frames, (cfg.siglip.image_size, cfg.dino.image_size))
+    return counts
+
+
+def _demo_clip(ckpt, clip):
+    """Leg 5: cli/demo.run on the checkpoint and a 16 s clip, on the card,
+    with the launch counters set to 0 just before and read just after."""
+    from tdc_video_tpu_torch.cli import demo
+    from tdc_video_tpu_torch.media.io import encode_test_video
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    encode_test_video(clip, **CLIP)
+    args = demo.parse_args(["--model_path", ckpt, "--video", clip, "--question", QUESTION,
+                            "--bert_tokenizer", "", "--max_new_tokens", str(MAX_NEW_TOKENS),
+                            "--device", DEVICE])
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    out = demo.run(args, tokenizer=ByteTokenizer())
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    log(f"[8] demo: {out['n_frames']} frames decoded in {out['decode_s']:.3f} s, load "
+        f"{out['load_s']:.3f} s, answer {out['answer_s']:.3f} s, ids {out['ids']}, launches "
+        f"{json.dumps(counts)}")
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
+    if out["n_frames"] != 16 or missing:
+        raise AssertionError(f"demo: {out['n_frames']} frames, kernels not launched: {missing}")
+    return counts
+
+
+def _compare_trees(a, b, path=""):
+    """(leaves compared, paths that differ in structure, dtype or bits)."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or sorted(a) != sorted(b):
+            return 0, [path or "/"]
+        out = [_compare_trees(a[k], b[k], f"{path}/{k}") for k in b]
+    elif isinstance(b, (list, tuple)):
+        if not isinstance(a, (list, tuple)) or len(a) != len(b):
+            return 0, [path]
+        out = [_compare_trees(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))]
+    elif b is None:
+        return 0, [] if a is None else [path]
+    else:
+        same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        return 1, [] if same else [path]
+    return sum(n for n, _ in out), [p for _, d in out for p in d]
+
+
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -958,6 +1188,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device_build()
+    from tdc_video_tpu_torch.media.build import ffmpeg_libraries
+
+    # phase 8's clip leg needs FFmpeg's libraries: asked before any phase runs
+    has_ffmpeg, ffmpeg_msg = ffmpeg_libraries()
+    log(f"[1] FFmpeg libraries (pkg-config): {'found' if has_ffmpeg else 'not found'}: "
+        f"{' | '.join(ffmpeg_msg.splitlines())}")
     from tdc_video_tpu_torch.config import tdc_llama32_3b
     from tdc_video_tpu_torch.eval.runner import prefill_shape
 
@@ -988,6 +1224,13 @@ def main() -> int:
         launches = train_rows[0]["launches"]
         train_rows[0] = k4_row(n_frames)
         train_rows[0]["launches"] = launches
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_counts, demo_counts = phase_checkpoint(has_ffmpeg, ffmpeg_msg)
+    for r in rows:  # K1-K3 on phase 8's paths: the loaded checkpoint, the demo where it ran
+        r["launches_checkpoint"] = ckpt_counts[r["name"]]
+        r["launches_demo"] = None if demo_counts is None else demo_counts[r["name"]]
     print(json.dumps({"kernels": rows + train_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,104 @@
+"""Single-shot video QA demo (port of tdc_video_tpu/cli/demo.py, visual
+path): decode at 1 fps, the model's conversation template, greedy decoding.
+
+    python -m tdc_video_tpu_torch.cli.demo --model_path checkpoints/TDC-Llama3.2-3B \
+        --video examples/video1.mp4 --question "Describe this video in detail."
+
+Runs on CUDA unless --device cpu.  The tokenizer is read from the
+checkpoint directory with transformers; `run(args, tokenizer=...)` takes
+any tokenizer with encode/decode instead.  --audio, --quantize, --kv_quant,
+--spec_window and --profile are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict
+
+# each option the port does not have yet, and the ROADMAP.md item that ports it
+NOT_PORTED = {
+    "audio": "queue 1 item 4 (audio)",
+    "quantize": "queue 1 item 5 (quantization)",
+    "kv_quant": "queue 1 item 5 (quantization)",
+    "spec_window": "queue 1 item 6 (serving extras)",
+    "profile": "queue 1 item 9 (utils/profiling.py)",
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description="TDC-Video demo (PyTorch/CUDA port)")
+    ap.add_argument("--model_path", required=True)
+    ap.add_argument("--model_base", default=None)
+    ap.add_argument("--model_name", default=None)
+    ap.add_argument("--video", required=True)
+    ap.add_argument("--audio", default=None)
+    ap.add_argument("--question", default="Describe this video in detail.")
+    ap.add_argument("--bert_tokenizer", default="./checkpoints/bert-base-uncased")
+    ap.add_argument("--max_new_tokens", type=int, default=128)
+    ap.add_argument("--max_frames", type=int, default=1000)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="accepted as in the JAX demo, which decodes greedily whatever its value")
+    ap.add_argument("--kv_quant", default=None, choices=["int8"])
+    ap.add_argument("--spec_window", type=int, default=0)
+    ap.add_argument("--quantize", default=None, choices=["int8", "int8-all"])
+    ap.add_argument("--profile", default=None, metavar="LOGDIR")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
+    """Load, decode, answer.  `tokenizer` (encode/decode) replaces the
+    checkpoint's transformers tokenizer when given.  Returns the answer, its
+    token ids, the frame count and the seconds of each step."""
+    import torch
+
+    from ..builder import load_pretrained_model
+    from ..eval.runner import HFTokenizerAdapter, TDCPredictor
+    from ..media.io import decode_video
+
+    for opt, item in NOT_PORTED.items():
+        if getattr(args, opt):
+            raise NotImplementedError(f"--{opt} is not ported yet, see ROADMAP.md {item}")
+
+    t_load = time.time()
+    hf_tok, model, _, _ = load_pretrained_model(
+        args.model_path, args.model_base, args.model_name, dtype=torch.bfloat16,
+        load_tokenizer=tokenizer is None, device=args.device)
+    if model.cfg.audio_input:
+        raise NotImplementedError(f"the checkpoint is audio-visual; {NOT_PORTED['audio']}")
+    tokenizer = tokenizer if tokenizer is not None else HFTokenizerAdapter(hf_tok)
+    bert_tok = None
+    if args.bert_tokenizer:
+        try:
+            from transformers import BertTokenizer
+
+            bert_tok = BertTokenizer.from_pretrained(args.bert_tokenizer, truncation_side="right")
+        except (ImportError, OSError) as e:  # no package, or no tokenizer files there
+            print(f"no BERT tokenizer ({type(e).__name__}): the compression is not text-conditioned")
+    load_s = time.time() - t_load
+    print(f"model loaded in {load_s:.1f}s")
+
+    t0 = time.time()
+    frames, _ = decode_video(args.video, fps=model.cfg.video_fps, max_frames=args.max_frames)
+    decode_s = time.time() - t0
+    print(f"video: {len(frames)} frames @ {model.cfg.video_fps:g} fps, decoded in {decode_s:.2f}s")
+
+    predictor = TDCPredictor(model.cfg, model.params, tokenizer, bert_tokenizer=bert_tok,
+                             max_new_tokens=args.max_new_tokens, max_eval_frames=args.max_frames,
+                             device=args.device)
+    t1 = time.time()
+    answer = predictor.answer(frames, args.question, max_new_tokens=args.max_new_tokens,
+                              video_uid=args.video)
+    answer_s = time.time() - t1
+    print(f"\n{answer}\n\n[{answer_s:.1f}s inference]")
+    return {"answer": answer, "ids": list(predictor.stats.last_ids), "n_frames": len(frames),
+            "load_s": load_s, "decode_s": decode_s, "answer_s": answer_s}
+
+
+def main(argv=None) -> Dict[str, Any]:
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Config dataclasses (port of tdc_video_tpu/config.py, visual-only presets).
 
 Field names are the JAX package's; `dtype`, `param_dtype` and
-`compress_dtype` are torch dtypes.  The audio config and the audio variants
-of the presets are not ported.
+`compress_dtype` are torch dtypes.  BeatsConfig is kept as plain data, so
+that a checkpoint's config.json reads and writes as in the JAX package; the
+audio model itself and the audio variants of the presets are not ported.
 """
 
 from __future__ import annotations
@@ -184,6 +185,42 @@ QFORMER_TINY = QFormerConfig(
 
 
 @dataclass(frozen=True)
+class BeatsConfig:
+    """BEATs audio transformer dimensions (data only: no audio compute is
+    ported)."""
+
+    embed_dim: int = 512  # patch-embed conv output
+    encoder_embed_dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    ffn_dim: int = 3072
+    fbank_bins: int = 128
+    patch_size: int = 16
+    conv_bias: bool = False
+    layer_norm_first: bool = False
+    deep_norm: bool = True
+    gru_rel_pos: bool = True
+    num_buckets: int = 320
+    max_distance: int = 800
+    dropout: float = 0.0
+    fbank_mean: float = 15.41663
+    fbank_std: float = 6.55582
+
+
+BEATS_BASE = BeatsConfig()
+
+BEATS_TINY = BeatsConfig(
+    embed_dim=16,
+    encoder_embed_dim=32,
+    num_layers=2,
+    num_heads=2,
+    ffn_dim=64,
+    num_buckets=32,
+    max_distance=64,
+)
+
+
+@dataclass(frozen=True)
 class SVAConfig:
     """Spatial Vision Aggregator."""
 
@@ -245,6 +282,7 @@ class TDCConfig:
     siglip: ViTConfig = SIGLIP_SO400M
     dino: ViTConfig = DINOV2_GIANT
     qformer: QFormerConfig = QFORMER_BASE
+    beats: BeatsConfig = BEATS_BASE
     sva: SVAConfig = SVA_DEFAULT
     compression: CompressionConfig = CompressionConfig()
 
@@ -299,6 +337,7 @@ def tdc_tiny() -> TDCConfig:
         siglip=VIT_TINY,
         dino=VIT_TINY_DINO,
         qformer=_replace(QFORMER_TINY, encoder_width=LM_TINY.hidden_size, query_length=4),
+        beats=BEATS_TINY,
         sva=SVA_TINY,
         compression=CompressionConfig(
             context_token_num=4,

@@ -1,5 +1,13 @@
-"""Frame preprocessing on the device (port of frame_bucket, pad_frames and
-device_preprocess from tdc_video_tpu/data/images.py).
+"""Frame preprocessing (port of tdc_video_tpu/data/images.py): the host
+path and the device path.
+
+The host path (expand2square, _resize_bicubic, preprocess_frame,
+process_frames) is the JAX package's default: pad to square with the tower
+mean, PIL's bicubic resize of 8-bit RGB, normalise.  PIL is not imported:
+`pil_bicubic_resize` computes what Pillow's Image.resize(..., BICUBIC) does
+(libImaging/Resample.c), bit for bit: Keys cubic with a = -0.5 widened by
+the scale when downsampling, coefficients in 22-bit fixed point, the
+horizontal pass rounded to uint8 before the vertical pass.
 
 device_preprocess is the JAX package's on-device path: expand2square with
 the tower mean as fill, then jax.image.resize(method="cubic",
@@ -7,7 +15,7 @@ antialias=True), then normalisation.  That resize is Keys cubic with
 a = -0.5 and, when downsampling, the kernel widened by the scale factor; it
 is not torch's bicubic (a = -0.75, no widening).  The separable resize
 matrices are built here in numpy to the same definition and applied as two
-matmuls.  (The PIL host path of the JAX package is not ported.)
+matmuls.
 """
 
 from __future__ import annotations
@@ -40,6 +48,113 @@ def tower_preprocess_list(cfg: TDCConfig) -> List[TowerPreprocess]:
     ]
 
 
+def expand2square(img: np.ndarray, fill: Tuple[int, int, int]) -> np.ndarray:
+    """uint8 [H, W, 3] -> centred square canvas filled with the tower mean."""
+    h, w = img.shape[:2]
+    if h == w:
+        return img
+    side = max(h, w)
+    canvas = np.empty((side, side, 3), img.dtype)
+    canvas[:] = np.asarray(fill, img.dtype)
+    top = (side - h) // 2
+    left = (side - w) // 2
+    canvas[top: top + h, left: left + w] = img
+    return canvas
+
+
+# Pillow's fixed-point precision of the 8-bit resampling path
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bicubic_filter(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic_filter (a = -0.5), in float64 and its order of
+    operations."""
+    x = np.abs(x)
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+@lru_cache(maxsize=32)
+def _pil_coeffs(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis:
+    (tap indices [n_out, K] into the input, int32 fixed-point weights
+    [n_out, K]); taps past a row's window have weight 0."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    idx = np.zeros((n_out, ksize), np.int64)
+    kk = np.zeros((n_out, ksize), np.float64)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        taps = np.arange(xmax)
+        w = _pil_bicubic_filter(((taps + xmin) - center + 0.5) * (1.0 / filterscale))
+        ww = 0.0
+        for v in w:  # Pillow's running sum, in its order
+            ww += v
+        if ww != 0.0:
+            w = w / ww
+        idx[xx, :xmax] = taps + xmin
+        kk[xx, :xmax] = w
+    fixed = np.trunc(np.where(kk < 0, -0.5 + kk * (1 << _PRECISION_BITS),
+                              0.5 + kk * (1 << _PRECISION_BITS))).astype(np.int32)
+    return idx, fixed
+
+
+def _pil_pass(img: np.ndarray, n_out: int) -> np.ndarray:
+    """One 8-bit resampling pass of Pillow along the rows (axis 0) of a
+    uint8 [H, W, C] image: int32 sums from 1 << 21 (Pillow's, which do not
+    overflow), shifted right by 22 and clipped to 0..255.  One tap at a
+    time over all outputs, each a gather of whole rows."""
+    idx, k = _pil_coeffs(img.shape[0], n_out)
+    rows = img.reshape(img.shape[0], -1)
+    acc = np.full((n_out, rows.shape[1]), 1 << (_PRECISION_BITS - 1), np.int32)
+    for t in range(idx.shape[1]):
+        acc += rows[idx[:, t]] * k[:, t, None]
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8).reshape((n_out,) + img.shape[1:])
+
+
+def pil_bicubic_resize(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's Image.fromarray(img).resize((width, height), Image.BICUBIC) for
+    a uint8 [H, W, 3] image, without PIL: the horizontal pass first (on the
+    transposed image, so both passes gather rows), its result stored as
+    uint8, then the vertical pass; an axis whose size does not change is not
+    resampled."""
+    out = img
+    if width != img.shape[1]:
+        out = _pil_pass(np.ascontiguousarray(out.transpose(1, 0, 2)), width).transpose(1, 0, 2)
+    if height != img.shape[0]:
+        out = _pil_pass(np.ascontiguousarray(out), height)
+    return np.ascontiguousarray(out)
+
+
+def _resize_bicubic(img: np.ndarray, size: int) -> np.ndarray:
+    if img.shape[0] == size and img.shape[1] == size:
+        return img
+    return pil_bicubic_resize(img, size, size)
+
+
+def preprocess_frame(img: np.ndarray, tp: TowerPreprocess) -> np.ndarray:
+    """uint8 [H, W, 3] -> normalized float32 [size, size, 3]."""
+    fill = tuple(int(m * 255) for m in tp.mean)
+    sq = expand2square(img, fill)
+    sq = _resize_bicubic(sq, tp.size)
+    x = sq.astype(np.float32) / 255.0
+    return (x - np.asarray(tp.mean, np.float32)) / np.asarray(tp.std, np.float32)
+
+
+def process_frames(frames: Sequence[np.ndarray], cfg: TDCConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """uint8 frames -> (siglip_px [T, 384, 384, 3], dino_px [T, 378, 378, 3]),
+    on the host."""
+    sig_tp, dino_tp = tower_preprocess_list(cfg)
+    sig = np.stack([preprocess_frame(f, sig_tp) for f in frames])
+    dino = np.stack([preprocess_frame(f, dino_tp) for f in frames])
+    return sig, dino
+
+
 def pad_frames(sig: np.ndarray, dino: np.ndarray, max_frames: int):
     """Right-pad the frame axis to a static bucket; returns (sig, dino, mask)."""
     T = sig.shape[0]
@@ -69,14 +184,14 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
 
 
 @lru_cache(maxsize=32)
-def cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """[n_out, n_in] weights of jax.image.resize(method="cubic",
-    antialias=True) along one axis: half-pixel centres, the Keys kernel
-    widened by 1/scale when downsampling, columns normalised, samples
-    outside the input zeroed."""
+def cubic_resize_matrix(n_in: int, n_out: int, antialias: bool = True) -> np.ndarray:
+    """[n_out, n_in] weights of jax.image.resize(method="cubic", antialias)
+    along one axis: half-pixel centres, the Keys kernel (widened by 1/scale
+    when downsampling if antialias), columns normalised, samples outside the
+    input zeroed."""
     scale = n_out / n_in
     inv_scale = 1.0 / scale
-    kernel_scale = np.float32(max(inv_scale, 1.0))
+    kernel_scale = np.float32(max(inv_scale, 1.0) if antialias else 1.0)
     sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(inv_scale) - np.float32(0.5)
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
     w = _keys_cubic(x)  # [n_in, n_out]

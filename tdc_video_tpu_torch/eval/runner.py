@@ -1,10 +1,12 @@
 """Single-video QA predictor (port of the visual path of
 tdc_video_tpu/eval/runner.py: TDCPredictor.answer and what it calls).
 
-Frames go through the device-side preprocessing (data/images.py); the
-tokenizer is any object with `encode(text) -> List[int]` and
-`decode(ids) -> str`.  No feature cache, audio, batching or speculative
-decoding in this slice.
+Frames are preprocessed on the host (the JAX package's default: PIL's
+bicubic chain, data/images.process_frames) or, with device_preprocess=True,
+on the device.  The tokenizer is any object with `encode(text) -> List[int]`
+and `decode(ids) -> str`; HFTokenizerAdapter wraps a transformers
+tokenizer.  One video's features are cached under the caller's video_uid.
+No audio, batching or speculative decoding in this slice.
 """
 
 from __future__ import annotations
@@ -21,11 +23,26 @@ from ..compress.aspect import frame_token_layout
 from ..config import TDCConfig
 from ..constants import DEFAULT_IMAGE_TOKEN, IMAGE_TOKEN_INDEX
 from ..data.conversation import conv_templates
-from ..data.images import device_preprocess, frame_bucket
+from ..data.images import device_preprocess, frame_bucket, pad_frames, process_frames
 from ..data.preprocess import tokenizer_image_token
 from ..device import resolve_device, synchronize
 from ..model import encode_frames
 from ..serving.generate import generate_encoded
+
+
+class HFTokenizerAdapter:
+    """Bridges an HF tokenizer to the encode/decode protocol (encode ->
+    tokenizer(text).input_ids)."""
+
+    def __init__(self, tok):
+        self.tok = tok
+        self.bos_token_id = getattr(tok, "bos_token_id", None)
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok(text).input_ids
+
+    def decode(self, ids) -> str:
+        return self.tok.decode([int(i) for i in ids], skip_special_tokens=True)
 
 
 def _trim_generated(ids, lm_cfg) -> List[int]:
@@ -99,6 +116,7 @@ class TDCPredictor:
         max_eval_frames: int = 1000,
         text_bucket: int = 512,
         attn_impl: str = "flash",
+        device_preprocess: bool = False,
         device=None,
     ):
         self.cfg = cfg
@@ -109,21 +127,36 @@ class TDCPredictor:
         self.max_eval_frames = max_eval_frames
         self.text_bucket = text_bucket
         self.attn_impl = attn_impl
+        # False: the host path, bit for bit the reference's processor chain;
+        # True: pad, resize and normalise on the device (within tolerance)
+        self.device_preprocess = device_preprocess
         self.device = resolve_device(device)
+        self._feat_cache: Tuple[Any, Any] = (None, None)  # one video's features
         self.stats = PredictorStats()
 
-    def encode_video(self, frames: np.ndarray):
+    def encode_video(self, frames: np.ndarray, cache_key=None):
         """uint8 frames [n, h, w, 3] -> (frame_feats [T, P, H], dino_feats,
-        frame_mask [T] bool, T), T the frame bucket; padded frames are zeros."""
+        frame_mask [T] bool, T), T the frame bucket; padded frames are
+        masked.  Cached under `cache_key` (one video)."""
+        if cache_key is not None and self._feat_cache[0] == cache_key:
+            return self._feat_cache[1]
         T = frame_bucket(len(frames))
-        pad = T - len(frames)
-        u8 = np.concatenate([frames, np.zeros((pad,) + frames.shape[1:], frames.dtype)]) if pad \
-            else np.asarray(frames)
-        fmask = np.arange(T) < len(frames)
-        sig, dino = device_preprocess(torch.from_numpy(u8).to(self.device), self.cfg)
+        if self.device_preprocess:
+            pad = T - len(frames)
+            u8 = np.concatenate([frames, np.zeros((pad,) + frames.shape[1:], frames.dtype)]) \
+                if pad else np.asarray(frames)
+            fmask = np.arange(T) < len(frames)
+            sig, dino = device_preprocess(torch.from_numpy(u8).to(self.device), self.cfg)
+        else:
+            sig, dino = process_frames(list(frames), self.cfg)
+            sig, dino, fmask = pad_frames(sig, dino, T)
+            sig, dino = (torch.from_numpy(x).to(self.device) for x in (sig, dino))
         ff, df = encode_frames(self.cfg, self.params, sig.to(self.cfg.dtype),
                                dino.to(self.cfg.dtype), attn_impl=self.attn_impl)
-        return ff, df, fmask, T
+        out = (ff, df, fmask, T)
+        if cache_key is not None:
+            self._feat_cache = (cache_key, out)
+        return out
 
     def build_text(self, question: str, qformer_prompt: Optional[str] = None):
         return build_text(self.cfg, self.tok, question, qformer_prompt)
@@ -136,18 +169,21 @@ class TDCPredictor:
         return np.asarray(enc["input_ids"], np.int32), np.asarray(enc["attention_mask"], bool)
 
     def prepare(self, frames: np.ndarray, question: str, qformer_prompt: Optional[str] = None,
-                max_new_tokens: Optional[int] = None) -> Dict[str, Any]:
+                max_new_tokens: Optional[int] = None, video_uid: Optional[str] = None) -> Dict[str, Any]:
         """Everything `answer` does before generation: prompt ids, frame
-        resample to the token budget, tower encode.  Returns {"ids": prompt
-        ids, "gen": keyword arguments of generate_encoded}."""
+        resample to the token budget, tower encode (cached under an explicit
+        video_uid: id(frames) can be reused after garbage collection).
+        Returns {"ids": prompt ids, "gen": keyword arguments of
+        generate_encoded}."""
         cfg = self.cfg
         ids, img_pos, qtext = self.build_text(question, qformer_prompt)
         cap = min(budget.max_num_frames(cfg, ids, train=False), self.max_eval_frames)
+        feat_key = None if video_uid is None else (video_uid, frames.shape, min(cap, len(frames)))
         if len(frames) > cap:
             frames = frames[[int(len(frames) / cap * i) for i in range(cap)]]
 
         t0 = time.perf_counter()
-        ff, df, fmask, T = self.encode_video(frames)
+        ff, df, fmask, T = self.encode_video(frames, cache_key=feat_key)
         synchronize(self.device)
         self.stats.encode_s = time.perf_counter() - t0
 
@@ -178,8 +214,8 @@ class TDCPredictor:
         return {"ids": ids, "gen": gen}
 
     def answer(self, frames: np.ndarray, question: str, qformer_prompt: Optional[str] = None,
-               max_new_tokens: Optional[int] = None) -> str:
-        req = self.prepare(frames, question, qformer_prompt, max_new_tokens)
+               max_new_tokens: Optional[int] = None, video_uid: Optional[str] = None) -> str:
+        req = self.prepare(frames, question, qformer_prompt, max_new_tokens, video_uid)
         timings: Dict[str, float] = {}
         toks = generate_encoded(self.cfg, self.params, **req["gen"], attn_impl=self.attn_impl,
                                 timings=timings)

@@ -155,3 +155,22 @@ def vit_forward(
     if interpolate:
         x = bilinear_resize_tokens(x, cfg.grid_size, int(cfg.interp_tokens**0.5))
     return x
+
+
+def prepare_pos_embed(params: Params, cfg: ViTConfig) -> Params:
+    """Resize a checkpoint's position grid to this config's grid size (DINOv2
+    ships a 518-px table, a 37x37 grid; the model runs at 378 px, 27x27).
+    As jax.image.resize(method="cubic", antialias=False) in f32: Keys cubic
+    with a = -0.5, the kernel not widened when downsampling."""
+    from ..data.images import cubic_resize_matrix
+
+    pos = params["pos_embed"]
+    n_extra = 1 if cfg.use_cls_token else 0
+    if pos.shape[0] == cfg.num_patches + n_extra:
+        return params
+    grid = pos[n_extra:]
+    src, dst = int(grid.shape[0] ** 0.5), cfg.grid_size
+    g = grid.reshape(src, src, -1).float()
+    w = torch.from_numpy(cubic_resize_matrix(src, dst, antialias=False)).to(g.device)
+    g = torch.einsum("ih,hwc,jw->ijc", w, g, w).reshape(dst * dst, -1).to(pos.dtype)
+    return dict(params, pos_embed=torch.cat([pos[:n_extra], g], dim=0))

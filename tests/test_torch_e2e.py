@@ -102,19 +102,29 @@ def test_bf16_compression_prefill_logits(params):
     close(out, ref, atol=2e-2, rtol=0)
 
 
-def test_predictor_answer_token_identical(params):
-    """TDCPredictor.answer in both packages: uint8 frames through the
-    device-side preprocessing, towers, SVA, compression, prefill, decode."""
+def _answers_token_identical(params, device_preprocess):
     jcfg, tcfg = _cfgs(compress_f32=True)
     jp, tp = params
     frames = np.random.default_rng(3).integers(0, 256, (6, 48, 64, 3), dtype=np.uint8)
     frames[3:, :, :32] = 255 - frames[3:, :, :32]  # a visible change mid-clip
     jpred = JaxPredictor(jcfg, jp, JaxStubTokenizer(), max_new_tokens=8, text_bucket=128,
-                         device_preprocess=True)
+                         device_preprocess=device_preprocess)
     tpred = TorchPredictor(tcfg, tp, StubTokenizer(), max_new_tokens=8, text_bucket=128,
-                           device="cpu")
+                           device_preprocess=device_preprocess, device="cpu")
     for question in ("What happens?", "Which color is on the left?"):
         ref = jpred.answer(frames, question)
         out = tpred.answer(frames, question)
         assert out == ref
         assert out == StubTokenizer().decode(tpred.stats.last_ids)
+
+
+def test_predictor_answer_token_identical(params):
+    """TDCPredictor.answer in both packages: uint8 frames through the
+    device-side preprocessing, towers, SVA, compression, prefill, decode."""
+    _answers_token_identical(params, device_preprocess=True)
+
+
+def test_predictor_answer_token_identical_host_path(params):
+    """The same on the default host path (PIL's bicubic chain in JAX, its
+    numpy copy in the port)."""
+    _answers_token_identical(params, device_preprocess=False)

@@ -25,6 +25,11 @@ def test_port_and_smoke_script_import_no_jax():
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "tdc_video_tpu."))
                      or m == "tdc_video_tpu")
         assert not bad, bad
+        # the checkpoint reader, the image resize and the demo need none of
+        # these at import (the tokenizer is imported only when asked for)
+        libs = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("PIL", "safetensors", "transformers"))
+        assert not libs, libs
         assert len(names) >= 20, names
         print(len(names))
         """
@@ -49,6 +54,10 @@ def test_entry_points_without_device_raise_without_cuda():
         init_tdc(tdc_tiny(), torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         TDCPredictor(tdc_tiny(), params={}, tokenizer=None)
+    from tdc_video_tpu_torch.builder import load_pretrained_model
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_pretrained_model(str(ROOT / "no-such-checkpoint"), load_tokenizer=False)
 
 
 def test_smoke_script_fails_without_cuda():
