@@ -60,7 +60,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    decoded at 1 fps, answering on the card with K1-K3 launched.  Whether
    the machine has FFmpeg's libraries is asked of pkg-config before the
    phase: without them the clip leg alone is skipped, with pkg-config's
-   message on its own line.
+   message on its own line;
+9. audio-visual QA: TDC-Qwen2-7B with audio (BEATs base, 12 layers at 768)
+   at full width and depth, random bf16 weights from the seed, answering
+   the phase-3 question about a 96 s clip as the demo sends it: 96 frames
+   decoded at 1 fps (seconds 0, 1, ..., 95) and the clip's synthetic 96 s
+   soundtrack (tones and noise, silent after 90 s; its tenth 10-s window
+   is partly padding).  At 96 frames the request's own visual cap keeps
+   every chunk whole, so the audio tokens reach the LM (a clip of 25 frames
+   or fewer makes each frame its own chunk, and the cap then cuts every
+   chunk's audio).  Checked: K1-K3 launched (counters set to 0 just before
+   the warm answer and read just after); K1 at this prefill's shape
+   (Qwen2-7B's GQA, 28 query over 4 KV heads) held to its plain version row
+   by row and timed beside SDPA (its own entry of the kernels line); flash
+   vs xla prefill logits of this request at phase 4's bounds; the audio
+   adding 50 tokens to each chunk's static block at the request's own cap
+   and moving the prefill logits there; encode_audio on the
+   card against the host CPU in f32 (cuFFT, the cuDNN grouped conv and the
+   pooling gather, none of which the CPU tests run) and two card calls
+   bitwise equal.  Printed: encode_audio's stages (fbank, BEATs, pooling),
+   the warm answer's wall time and stages, peak device memory, the audio
+   encode's device busy share under torch.profiler, decode seconds per
+   token and the untied head's lm_head time per step.  Every kernel's entry
+   gets its launches on this path (`launches_av`).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -591,10 +613,13 @@ def phase_main_path(rows):
     return cfg, params, pred, frames
 
 
-def phase_flash_vs_xla(cfg, params, pred, frames):
+def phase_flash_vs_xla(cfg, params, pred, frames, tag="4", **audio):
+    """LM prefill of one request with attn_impl "flash" and "xla": finite
+    logits, the same argmax, max abs difference within LOGIT_ATOL.
+    `audio` (wav, frame_seconds) goes to pred.prepare."""
     from tdc_video_tpu_torch.serving.generate import prefill_encoded
 
-    req = pred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+    req = pred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS, **audio)
     logits = {}
     for impl in ("flash", "xla"):
         logits[impl] = prefill_encoded(cfg, params, **req["gen"], attn_impl=impl)[0].float()
@@ -605,7 +630,7 @@ def phase_flash_vs_xla(cfg, params, pred, frames):
     top2 = torch.topk(lx[0], 2).values
     diff = float((lf - lx).abs().max())
     af, ax = int(lf.argmax(-1)[0]), int(lx.argmax(-1)[0])
-    log(f"[4] prefill T={req['gen']['max_len']}: argmax flash {af} xla {ax}, max_abs diff "
+    log(f"[{tag}] prefill T={req['gen']['max_len']}: argmax flash {af} xla {ax}, max_abs diff "
         f"{diff:.4e} (tol {LOGIT_ATOL}), xla top-2 gap {float(top2[0] - top2[1]):.4e}")
     if af != ax or diff > LOGIT_ATOL:
         raise AssertionError("flash and xla prefill disagree")
@@ -1151,6 +1176,221 @@ def _demo_clip(ckpt, clip):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9
+# ---------------------------------------------------------------------------
+
+# the request the demo sends for a 96 s clip: 96 frames decoded at 1 fps and
+# the clip's 16 kHz soundtrack (ten 10-s windows, the last one 6 s of audio
+# and 4 s of padding), silent from 90 s on.  96 frames fall in the 128-frame
+# bucket, whose visual cap (5632) holds even the most chunks 25 segments
+# can make of them (33: 33 x 129 + 63 x 17 = 5328 tokens), so no chunk is cut
+AV_SECONDS, AV_SILENT_FROM = 96, 90
+AV_FRAME_SECONDS = np.arange(AV_SECONDS, dtype=np.float64)
+AV_TOKENS = 50  # audio tokens fused into each chunk's static frame
+# encode_audio on the card against the host CPU, both f32 with TF32 off:
+# the CPU test's bound against JAX (tests/test_torch_audio.py
+# ENCODE_AUDIO_TOL), absolute and relative
+ENCODE_AUDIO_TOL = 2e-4
+
+
+class QwenByteTokenizer(ByteTokenizer):
+    """ByteTokenizer with Qwen2's ChatML specials."""
+
+    SPECIALS = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|endoftext|>": 151643}
+
+
+def synth_wav(seed: int) -> np.ndarray:
+    """AV_SECONDS of 16 kHz mono: three tones whose loudness changes every
+    few seconds, with noise, silent from AV_SILENT_FROM seconds on."""
+    rng = np.random.default_rng(seed)
+    n = AV_SECONDS * 16000
+    x = np.arange(n) / 16000
+    env = np.repeat(rng.uniform(0.2, 1.0, (AV_SECONDS // 4 + 1, 3)), 4 * 16000, axis=0)[:n]
+    wav = sum(0.2 * env[:, i] * np.sin(2 * np.pi * f0 * x)
+              for i, f0 in enumerate((220.0, 440.0, 1250.0)))
+    wav = (wav + 0.03 * rng.normal(size=n)).astype(np.float32)
+    wav[AV_SILENT_FROM * 16000:] = 0.0
+    return wav
+
+
+def _tree_to(tree, fn):
+    return {k: _tree_to(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def phase_audio_visual():
+    """Phase 9: audio-visual QA with TDC-Qwen2-7B at full width and depth
+    (module docstring).  Returns (the K1 row at this prefill's shape, the
+    launch counts of the warm answer)."""
+    from tdc_video_tpu_torch.compress.tdc import assign_chunks
+    from tdc_video_tpu_torch.config import tdc_qwen2_7b
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor, audio_request, prefill_shape
+    from tdc_video_tpu_torch.model import encode_audio, init_tdc, prepare_visual
+    from tdc_video_tpu_torch.models import lm as lm_mod
+    from tdc_video_tpu_torch.models.beats import beats_forward
+    from tdc_video_tpu_torch.models.layers import linear
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.ops.audio import kaldi_fbank, pool_seconds_to_frames, window_to_seconds
+    from tdc_video_tpu_torch.ops.segment import segment_boundaries
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    cfg = tdc_qwen2_7b(audio=True)
+    dev = torch.device(DEVICE)
+    tok = QwenByteTokenizer()
+    log(f"[9] TDC-Qwen2-7B audio-visual at full width and depth: LM {cfg.lm.num_layers} layers "
+        f"hidden {cfg.lm.hidden_size} heads {cfg.lm.num_heads}/{cfg.lm.num_kv_heads} vocab "
+        f"{cfg.lm.vocab_size} ({'tied' if cfg.lm.tie_word_embeddings else 'untied'} head), "
+        f"SigLIP {cfg.siglip.num_layers}, DINOv2 {cfg.dino.num_layers}, BEATs "
+        f"{cfg.beats.num_layers} layers at {cfg.beats.encoder_embed_dim}")
+    t0 = time.perf_counter()
+    params = init_tdc(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_audio = sum(t.numel() for k in ("beats", "audio_proj") for t in _leaves(params[k]))
+    log(f"[9] init_tdc {n_params / 1e9:.3f} B params bf16 ({n_audio / 1e6:.1f} M of them BEATs + "
+        f"audio_proj) in {time.perf_counter() - t0:.1f} s")
+    frames, wav = synth_frames(SEED, len(AV_FRAME_SECONDS)), synth_wav(SEED)
+    av = {"wav": wav, "frame_seconds": AV_FRAME_SECONDS}
+    log(f"[9] request: {len(frames)} frames {FRAME_H}x{FRAME_W} at 1 fps (seconds 0 to "
+        f"{int(AV_FRAME_SECONDS[-1])}), wav {len(wav) / 16000:g} s (silent from "
+        f"{AV_SILENT_FROM} s), max_new_tokens {MAX_NEW_TOKENS}")
+    pred = TDCPredictor(cfg, params, tok, bert_tokenizer=None, device_preprocess=True, device=dev)
+
+    # the K1 row at this prefill's shape (Qwen2-7B's GQA: 28 query heads
+    # over 4 KV heads)
+    T, S = prefill_shape(cfg, tok, QUESTION, len(frames), MAX_NEW_TOKENS)
+    log(f"[9] K1 at the audio-visual prefill shape T={T} S={S}")
+    row = _fwd_row(fa, _rnd_fn(SEED + 9), "flash_kernel", "tdc_video_tpu/ops/flash_attention.py:38",
+                   (1, T, S, cfg.lm.num_heads, cfg.lm.num_kv_heads, cfg.lm.head_dim), True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    text = pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS, **av)
+    cold = time.perf_counter() - t0
+    ids = list(pred.stats.last_ids)
+    log(f"[9] first answer: wall {cold:.3f} s, ids {ids} text {text!r}")
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS, **av)
+    wall = time.perf_counter() - t0
+    counts = dict(fa.launches)
+    st = pred.stats
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[9] warm answer: wall {wall:.3f} s: encode {st.encode_s:.3f} s, audio {st.audio_s:.3f} s, "
+        f"compress+prefill {st.prefill_s:.3f} s, decode {st.decode_s:.3f} s ({st.decode_steps} "
+        f"steps, {st.decode_s / max(st.decode_steps, 1):.4f} s per token); peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(counts)}")
+    if list(st.last_ids) != ids:
+        raise AssertionError(f"[9] the warm answer differs: {st.last_ids} vs {ids}")
+    # (a) K1, K2 and K3 ran on this path
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"[9] kernels {missing} were not launched")
+    row["launches"] = counts["flash_kernel"]
+
+    # (c) flash vs xla prefill of the audio-visual request
+    phase_flash_vs_xla(cfg, params, pred, frames, tag="9", **av)
+
+    # (d) the audio reaches the sequence: 50 more tokens in every chunk's
+    # static block, at the request's own visual cap
+    gen_av = pred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS, **av)["gen"]
+    gen_v = pred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)["gen"]
+    if gen_v["max_visual_len"] != gen_av["max_visual_len"]:
+        raise AssertionError("[9] the wav changes the request's visual cap")
+    if gen_v["audio_tokens"] is not None:
+        raise AssertionError("[9] a request without a wav carries audio tokens")
+
+    def n_visual(gen):
+        return int(prepare_visual(cfg, params, gen["frame_feats"][0], gen["dino_feats"][0],
+                                  gen["frame_mask"][0], gen["qformer_text_ids"][0],
+                                  gen["qformer_text_mask"][0],
+                                  None if gen["audio_tokens"] is None else gen["audio_tokens"][0],
+                                  max_visual_len=gen["max_visual_len"],
+                                  token_valid=gen["token_valid"][0],
+                                  query_pool=gen["query_pool"][0])[1])
+
+    boundary = segment_boundaries(gen_av["dino_feats"][0], gen_av["frame_mask"][0],
+                                  cfg.compression.max_num_segments)
+    n_chunks = int(assign_chunks(boundary, gen_av["frame_mask"][0], cfg.compression.chunk_size)[2])
+    nv_av, nv_v = n_visual(gen_av), n_visual(gen_v)
+    log(f"[9] at the request's visual cap {gen_av['max_visual_len']}: n_visual with the wav "
+        f"{nv_av}, without {nv_v}; {n_chunks} chunks in {int(boundary.sum())} segments")
+    if nv_av - nv_v != AV_TOKENS * n_chunks:
+        raise AssertionError(f"[9] audio adds {nv_av - nv_v} tokens, not {AV_TOKENS} x {n_chunks}")
+    # and they move the LM: the prefill logits with and without the wav
+    lg = [prefill_encoded(cfg, params, **g, attn_impl="flash")[0].float() for g in (gen_av, gen_v)]
+    moved = float((lg[0] - lg[1]).abs().max())
+    log(f"[9] prefill T={gen_av['max_len']}: logits with and without the wav differ by up to "
+        f"{moved:.4e}")
+    if not moved > 0 or not all(bool(torch.isfinite(x).all()) for x in lg):
+        raise AssertionError("[9] the audio tokens do not reach the LM")
+
+    # (e) encode_audio on the card against the host CPU, f32, TF32 off; (f)
+    # two calls on the card give the same bits, in f32 and in bf16
+    nT = gen_av["frame_mask"].shape[1]
+    host = audio_request(wav, nT, AV_FRAME_SECONDS)
+    args = [torch.from_numpy(x) for x in host]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: _tree_to(params[k], lambda x: x.float()) for k in ("beats", "audio_proj")}
+    p_cpu = _tree_to(p32, lambda x: x.cpu())
+    dargs = [a.to(dev) for a in args]
+
+    def enc(c, p, a):
+        return encode_audio(c, p, *a[:5], nT, sec_valid=a[5])
+
+    t0 = time.perf_counter()
+    ref = enc(cfg32, p_cpu, args)
+    cpu_s = time.perf_counter() - t0
+    out = [enc(cfg32, p32, dargs) for _ in range(2)]
+    outb = [enc(cfg, params, dargs) for _ in range(2)]
+    torch.cuda.synchronize()
+    diff = (out[0].cpu() - ref).abs()
+    ok = bool(torch.allclose(out[0].cpu(), ref, atol=ENCODE_AUDIO_TOL, rtol=ENCODE_AUDIO_TOL))
+    log(f"[9] encode_audio f32, card vs host CPU ({cpu_s:.2f} s there): {tuple(ref.shape)}, max_abs "
+        f"{float(diff.max()):.3e} on values up to {float(ref.abs().max()):.3f} (tol "
+        f"{ENCODE_AUDIO_TOL:g} abs + rel) {'ok' if ok else 'FAIL'}")
+    same = [torch.equal(*out), torch.equal(*outb)]
+    log(f"[9] encode_audio twice on the card: bitwise equal in f32 {same[0]}, in bf16 {same[1]}")
+    if not ok or not all(torch.isfinite(o).all() for o in out + outb):
+        raise AssertionError("[9] encode_audio on the card disagrees with the host CPU")
+    if not all(same):
+        raise AssertionError("[9] two encode_audio calls on the card differ")
+
+    # encode_audio's stages at the served dtype, each timed alone
+    wins, wmask = dargs[0], dargs[1]
+    fb = kaldi_fbank(wins)
+    fb_mask = wmask[:, ::160][:, : fb.shape[1]]
+    tokens, _ = beats_forward(cfg.beats, params["beats"], fb, fb_mask, dtype=cfg.dtype)
+
+    def pool():
+        per_sec = window_to_seconds(tokens)
+        per_sec = per_sec.reshape((-1,) + per_sec.shape[2:])
+        fr = pool_seconds_to_frames(per_sec, *dargs[2:5], nT, dargs[5])
+        return linear(params["audio_proj"], fr.to(cfg.dtype))
+
+    stages = {"fbank": lambda: kaldi_fbank(wins),
+              "beats": lambda: beats_forward(cfg.beats, params["beats"], fb, fb_mask,
+                                             dtype=cfg.dtype),
+              "pool+audio_proj": pool, "encode_audio": lambda: enc(cfg, params, dargs)}
+    ms = {k: time_ms(fn, reps=5, rounds=3) for k, fn in stages.items()}
+    log(f"[9] encode_audio bf16 ({wins.shape[0]} windows, {tokens.shape[1]} BEATs tokens each): "
+        + ", ".join(f"{k} {v / 1e3:.5f} s" for k, v in ms.items()))
+    profile_stage("9", "encode_audio (bf16)", lambda: enc(cfg, params, dargs))
+
+    # decode: the untied head's f32 copy (dot_f32) on every step
+    hidden = torch.randn((1, 1, cfg.lm.hidden_size), device=dev).to(cfg.dtype)
+    head_ms = time_ms(lambda: lm_mod.lm_head(cfg.lm, params["lm"], hidden), reps=5, rounds=3)
+    head_bytes = cfg.lm.hidden_size * cfg.lm.vocab_size
+    log(f"[9] decode {st.decode_s / max(st.decode_steps, 1):.4f} s per token; lm_head alone "
+        f"{head_ms:.3f} ms a step ({head_bytes * 2 / 1e9:.2f} GB bf16 head read, cast to a "
+        f"{head_bytes * 4 / 1e9:.2f} GB f32 copy and read again)")
+    del params, pred, p32, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, counts
+
+
 def _compare_trees(a, b, path=""):
     """(leaves compared, paths that differ in structure, dtype or bits)."""
     if isinstance(b, dict):
@@ -1231,7 +1471,13 @@ def main() -> int:
     for r in rows:  # K1-K3 on phase 8's paths: the loaded checkpoint, the demo where it ran
         r["launches_checkpoint"] = ckpt_counts[r["name"]]
         r["launches_demo"] = None if demo_counts is None else demo_counts[r["name"]]
-    print(json.dumps({"kernels": rows + train_rows}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_av, counts_av = phase_audio_visual()
+    k1_av["launches_av"] = counts_av["flash_kernel"]
+    for r in rows + train_rows:  # each kernel's launches on phase 9's path
+        r["launches_av"] = counts_av[r["name"]]
+    print(json.dumps({"kernels": rows + train_rows + [k1_av]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

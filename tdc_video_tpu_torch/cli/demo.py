@@ -1,12 +1,13 @@
-"""Single-shot video QA demo (port of tdc_video_tpu/cli/demo.py, visual
-path): decode at 1 fps, the model's conversation template, greedy decoding.
+"""Single-shot video QA demo (port of tdc_video_tpu/cli/demo.py): decode at
+1 fps, the model's conversation template, greedy decoding.  An audio-visual
+checkpoint hears --audio, or else the video's own soundtrack.
 
     python -m tdc_video_tpu_torch.cli.demo --model_path checkpoints/TDC-Llama3.2-3B \
         --video examples/video1.mp4 --question "Describe this video in detail."
 
 Runs on CUDA unless --device cpu.  The tokenizer is read from the
 checkpoint directory with transformers; `run(args, tokenizer=...)` takes
-any tokenizer with encode/decode instead.  --audio, --quantize, --kv_quant,
+any tokenizer with encode/decode instead.  --quantize, --kv_quant,
 --spec_window and --profile are not ported yet and raise.
 """
 
@@ -18,7 +19,6 @@ from typing import Any, Dict
 
 # each option the port does not have yet, and the ROADMAP.md item that ports it
 NOT_PORTED = {
-    "audio": "queue 1 item 4 (audio)",
     "quantize": "queue 1 item 5 (quantization)",
     "kv_quant": "queue 1 item 5 (quantization)",
     "spec_window": "queue 1 item 6 (serving extras)",
@@ -55,7 +55,7 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
 
     from ..builder import load_pretrained_model
     from ..eval.runner import HFTokenizerAdapter, TDCPredictor
-    from ..media.io import decode_video
+    from ..media.io import decode_video, load_audio
 
     for opt, item in NOT_PORTED.items():
         if getattr(args, opt):
@@ -65,8 +65,6 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     hf_tok, model, _, _ = load_pretrained_model(
         args.model_path, args.model_base, args.model_name, dtype=torch.bfloat16,
         load_tokenizer=tokenizer is None, device=args.device)
-    if model.cfg.audio_input:
-        raise NotImplementedError(f"the checkpoint is audio-visual; {NOT_PORTED['audio']}")
     tokenizer = tokenizer if tokenizer is not None else HFTokenizerAdapter(hf_tok)
     bert_tok = None
     if args.bert_tokenizer:
@@ -80,19 +78,27 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     print(f"model loaded in {load_s:.1f}s")
 
     t0 = time.time()
-    frames, _ = decode_video(args.video, fps=model.cfg.video_fps, max_frames=args.max_frames)
+    frames, ts = decode_video(args.video, fps=model.cfg.video_fps, max_frames=args.max_frames)
+    wav = None
+    if args.audio:
+        wav = load_audio(args.audio)
+    elif model.cfg.audio_input:
+        wav = load_audio(args.video)  # the video's own soundtrack
     decode_s = time.time() - t0
-    print(f"video: {len(frames)} frames @ {model.cfg.video_fps:g} fps, decoded in {decode_s:.2f}s")
+    audio = "none" if wav is None else f"{len(wav) / 16000:.1f}s"
+    print(f"video: {len(frames)} frames @ {model.cfg.video_fps:g} fps, audio: {audio}, "
+          f"decoded in {decode_s:.2f}s")
 
     predictor = TDCPredictor(model.cfg, model.params, tokenizer, bert_tokenizer=bert_tok,
                              max_new_tokens=args.max_new_tokens, max_eval_frames=args.max_frames,
                              device=args.device)
     t1 = time.time()
-    answer = predictor.answer(frames, args.question, max_new_tokens=args.max_new_tokens,
-                              video_uid=args.video)
+    answer = predictor.answer(frames, args.question, wav=wav, frame_seconds=ts,
+                              max_new_tokens=args.max_new_tokens, video_uid=args.video)
     answer_s = time.time() - t1
     print(f"\n{answer}\n\n[{answer_s:.1f}s inference]")
     return {"answer": answer, "ids": list(predictor.stats.last_ids), "n_frames": len(frames),
+            "audio_samples": None if wav is None else len(wav),
             "load_s": load_s, "decode_s": decode_s, "answer_s": answer_s}
 
 

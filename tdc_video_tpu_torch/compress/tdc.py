@@ -1,8 +1,8 @@
-"""Temporal Dynamic Context compression (port of tdc_video_tpu/compress/tdc.py,
-visual-only).
+"""Temporal Dynamic Context compression (port of tdc_video_tpu/compress/tdc.py).
 
 As in JAX: chunk assignment with cumulative ops over the frame axis, frames
-scattered into a [MAX_CHUNKS+1, chunk_size, P, H] buffer (row MAX_CHUNKS is
+(with their A audio tokens after the P visual ones, when there is audio)
+scattered into a [MAX_CHUNKS+1, chunk_size, P+A, H] buffer (row MAX_CHUNKS is
 a trash row for padded frames), one batched Q-Former call over every
 (chunk, subsequent frame) pair, then masked emission, the global budget
 clamp and a gather compaction.  `lax.associative_scan(max)` is torch.cummax.
@@ -83,29 +83,38 @@ def compress_video(
     boundary: torch.Tensor,  # [T] bool segment starts
     text_ids: Optional[torch.Tensor],  # [L] Q-Former prompt conditioning
     text_mask: Optional[torch.Tensor],  # [L] bool
+    audio_feats: Optional[torch.Tensor] = None,  # [T, A, H] (already audio_proj'ed)
     max_visual_len: int = 4096,
     dtype=torch.float32,
     token_valid: Optional[torch.Tensor] = None,  # [P] bool aspect mask
     query_pool: Optional[torch.Tensor] = None,  # [K, P] masked pooling matrix
     remat: bool = False,  # training: per-layer Q-Former checkpointing
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (visual [max_visual_len, H], n_visual scalar int32)."""
+    """Returns (visual [max_visual_len, H], n_visual scalar int32).  Audio
+    tokens ride in each frame after its P visual tokens: they reach the
+    Q-Former's encoder and each chunk's static block (P + A tokens), but
+    not the pooled query, which is built from the visual tokens alone."""
     c = cfg.compression
     T, P, H = frame_feats.shape
     n = c.chunk_size
     K = c.context_token_num
+    A = 0 if audio_feats is None else audio_feats.shape[1]
     MC = max_chunks(cfg, T)
     dev = frame_feats.device
     if token_valid is None:
         token_valid = torch.ones((P,), dtype=torch.bool, device=dev)
+    if A:
+        token_valid = torch.cat([token_valid, torch.ones((A,), dtype=torch.bool, device=dev)])
     tokens = frame_feats
+    if audio_feats is not None:
+        tokens = torch.cat([frame_feats, audio_feats.to(frame_feats.dtype)], dim=1)
     chunk_id, pos_in_chunk, num_chunks = assign_chunks(boundary, frame_mask, n)
 
     if c.add_static and T == 1:
         # single image: the lone frame is chunk 0's static block and the
         # Q-Former output never reaches the emission, so it is skipped
         n_comp = n - 1
-        key_block = torch.zeros((MC + 1, P, H), dtype=tokens.dtype, device=dev)
+        key_block = torch.zeros((MC + 1, P + A, H), dtype=tokens.dtype, device=dev)
         key_block[0] = tokens[0]
         chunk_valid = torch.zeros((MC + 1,), dtype=torch.bool, device=dev)
         chunk_valid[0] = frame_mask[0]
@@ -117,14 +126,14 @@ def compress_video(
         # row never reaches the output either way).
         row = torch.where(frame_mask, chunk_id, MC)
         pos = torch.where(frame_mask, pos_in_chunk, 0)
-        chunk_feats = torch.zeros((MC + 1, n, P, H), dtype=tokens.dtype, device=dev)
+        chunk_feats = torch.zeros((MC + 1, n, P + A, H), dtype=tokens.dtype, device=dev)
         chunk_feats[row, pos] = tokens
         chunk_frame_valid = torch.zeros((MC + 1, n), dtype=torch.bool, device=dev)
         chunk_frame_valid[row, pos] = frame_mask
         chunk_valid = chunk_frame_valid[:, 0]  # a chunk exists iff slot 0 is filled
 
-        key_block = chunk_feats[:, 0]  # [MC+1, P, H] static frame
-        key_visual = key_block[:, :P]
+        key_block = chunk_feats[:, 0]  # [MC+1, P+A, H] static frame, audio included
+        key_visual = key_block[:, :P]  # the pooled query sees the visual tokens only
         if c.add_static:
             others, others_valid, n_comp = chunk_feats[:, 1:], chunk_frame_valid[:, 1:], n - 1
         else:
@@ -144,8 +153,8 @@ def compress_video(
 
         # one batched Q-Former pass over all (chunk, frame) pairs
         B = (MC + 1) * n_comp
-        enc = others.reshape(B, P, H)
-        enc_mask = (others_valid[..., None] & token_valid[None, None]).reshape(B, P)
+        enc = others.reshape(B, P + A, H)
+        enc_mask = (others_valid[..., None] & token_valid[None, None]).reshape(B, P + A)
         q_flat = query.reshape(B, K, -1)
         if c.text_input and text_ids is not None:
             ids_b = text_ids[None].expand(B, text_ids.shape[0])

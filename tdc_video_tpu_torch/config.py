@@ -1,9 +1,9 @@
-"""Config dataclasses (port of tdc_video_tpu/config.py, visual-only presets).
+"""Config dataclasses (port of tdc_video_tpu/config.py).
 
 Field names are the JAX package's; `dtype`, `param_dtype` and
-`compress_dtype` are torch dtypes.  BeatsConfig is kept as plain data, so
-that a checkpoint's config.json reads and writes as in the JAX package; the
-audio model itself and the audio variants of the presets are not ported.
+`compress_dtype` are torch dtypes.  Each preset takes `audio=True` for its
+audio-visual variant (BEATs + audio_proj, 50 audio tokens fused into each
+chunk's static frame).
 """
 
 from __future__ import annotations
@@ -186,8 +186,7 @@ QFORMER_TINY = QFormerConfig(
 
 @dataclass(frozen=True)
 class BeatsConfig:
-    """BEATs audio transformer dimensions (data only: no audio compute is
-    ported)."""
+    """BEATs audio transformer dimensions (models/beats.py)."""
 
     embed_dim: int = 512  # patch-embed conv output
     encoder_embed_dim: int = 768
@@ -276,7 +275,7 @@ class CompressionConfig:
 
 @dataclass(frozen=True)
 class TDCConfig:
-    """Everything needed to build a (visual-only) TDC-Video model."""
+    """Everything needed to build a TDC-Video model."""
 
     lm: LMConfig = QWEN2_7B
     siglip: ViTConfig = SIGLIP_SO400M
@@ -298,6 +297,10 @@ class TDCConfig:
     # Q-Former compression compute dtype
     compress_dtype: Any = torch.bfloat16
 
+    def with_audio(self) -> "TDCConfig":
+        return _replace(self, audio_input=True,
+                        compression=_replace(self.compression, audio_input=True))
+
     @property
     def image_token_len(self) -> int:
         return self.sva.image_token_len
@@ -311,28 +314,30 @@ class TDCConfig:
         return (static + k * (n - 1)) // n
 
 
-def tdc_qwen2_7b() -> TDCConfig:
+def tdc_qwen2_7b(audio: bool = False) -> TDCConfig:
     """Video flagship (TDC-Qwen2-7B): 144-token SVA grid."""
-    return TDCConfig(
+    cfg = TDCConfig(
         lm=QWEN2_7B,
         sva=SVA_VIDEO,
         qformer=_replace(QFORMER_BASE, encoder_width=QWEN2_7B.hidden_size),
         conv_version="qwen",
     )
+    return cfg.with_audio() if audio else cfg
 
 
-def tdc_llama32_3b() -> TDCConfig:
-    return TDCConfig(
+def tdc_llama32_3b(audio: bool = False) -> TDCConfig:
+    cfg = TDCConfig(
         lm=LLAMA32_3B,
         sva=SVA_VIDEO,
         qformer=_replace(QFORMER_BASE, encoder_width=LLAMA32_3B.hidden_size),
         conv_version="llama3_2",
     )
+    return cfg.with_audio() if audio else cfg
 
 
-def tdc_tiny() -> TDCConfig:
-    """Tiny end-to-end config for tests: every visual module, toy sizes."""
-    return TDCConfig(
+def tdc_tiny(audio: bool = False) -> TDCConfig:
+    """Tiny end-to-end config for tests: every module, toy sizes."""
+    cfg = TDCConfig(
         lm=LM_TINY,
         siglip=VIT_TINY,
         dino=VIT_TINY_DINO,
@@ -349,3 +354,4 @@ def tdc_tiny() -> TDCConfig:
         tokenizer_model_max_length=512,
         dtype=torch.float32,
     )
+    return cfg.with_audio() if audio else cfg

@@ -1,5 +1,5 @@
 """Reference-format checkpoints -> the port's parameter trees (port of
-tdc_video_tpu/convert/from_hf.py, visual model).
+tdc_video_tpu/convert/from_hf.py).
 
 Each converter maps a flat state dict (name -> numpy array) into the JAX
 layout: weights [d_in, d_out], layers stacked on axis 0.  Safetensors files
@@ -14,7 +14,7 @@ of all its weights.  Per-layer leaves stay views of the state dict until
 `_stack` stacks them, one leaf at a time.  BF16 tensors, which numpy cannot
 hold, are read as their raw bits under a tagged dtype (`BF16`) and widened
 to f32 (`widen_bf16`) only where a leaf is made for numpy; the loader hands
-them to torch as bfloat16.  BEATs (audio) is not ported.
+them to torch as bfloat16.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 
-from ..config import LMConfig, QFormerConfig, ViTConfig
+from ..config import BeatsConfig, LMConfig, QFormerConfig, ViTConfig
 
 Array = np.ndarray
 StateDict = Mapping[str, Array]
@@ -39,7 +39,6 @@ SAFETENSORS_DTYPES = {
     "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
     "U64": np.uint64, "U32": np.uint32, "U16": np.uint16, "U8": np.uint8, "BOOL": np.bool_,
 }
-AUDIO_ITEM = "ROADMAP.md queue 1 item 4 (audio)"
 
 
 def _is_safetensors(path: str) -> bool:
@@ -323,6 +322,48 @@ def convert_sva(sd: StateDict, num_towers: int, num_groups: int, depth: int,
     return params
 
 
+def convert_beats(sd: StateDict, cfg: BeatsConfig, prefix: str = "", put: Put = _contiguous):
+    """A BEATs checkpoint (BEATs_iter3_plus_AS2M*.pt, nested under "model")
+    -> models/beats.py's tree.  The weight-normed pos_conv (weight_norm over
+    dim 2: g [1, 1, K], v [O, I/G, K]) is folded into a plain conv weight,
+    g * v / ||v|| with the norm over axes 0 and 1."""
+    patch = {"w": put(_patch_embed(sd[prefix + "patch_embedding.weight"]))}
+    if prefix + "patch_embedding.bias" in sd:
+        patch["b"] = put(sd[prefix + "patch_embedding.bias"])
+    g = widen_bf16(sd[prefix + "encoder.pos_conv.0.weight_g"])
+    v = widen_bf16(sd[prefix + "encoder.pos_conv.0.weight_v"])
+    norm = np.sqrt((v * v).sum(axis=(0, 1), keepdims=True))
+    pos_w = (g / np.maximum(norm, 1e-12)) * v  # [O, I/G, K]
+
+    layers = []
+    for i in range(cfg.num_layers):
+        lp = f"{prefix}encoder.layers.{i}."
+        layers.append(
+            {
+                "q_proj": _lin(sd, lp + "self_attn.q_proj", put=_view),
+                "k_proj": _lin(sd, lp + "self_attn.k_proj", put=_view),
+                "v_proj": _lin(sd, lp + "self_attn.v_proj", put=_view),
+                "o_proj": _lin(sd, lp + "self_attn.out_proj", put=_view),
+                "attn_norm": _ln(sd, lp + "self_attn_layer_norm", put=_view),
+                "fc1": _lin(sd, lp + "fc1", put=_view),
+                "fc2": _lin(sd, lp + "fc2", put=_view),
+                "final_norm": _ln(sd, lp + "final_layer_norm", put=_view),
+                "grep_linear": _lin(sd, lp + "self_attn.grep_linear", put=_view),
+                "grep_a": sd[lp + "self_attn.grep_a"].reshape(-1),
+            }
+        )
+    return {
+        "patch_embed": patch,
+        "patch_norm": _ln(sd, prefix + "layer_norm", put),
+        "post_extract_proj": _lin(sd, prefix + "post_extract_proj", put=put),
+        "pos_conv": {"w": put(pos_w), "b": put(sd[prefix + "encoder.pos_conv.0.bias"])},
+        "encoder_norm": _ln(sd, prefix + "encoder.layer_norm", put),
+        "rel_pos_bias": put(
+            sd[prefix + "encoder.layers.0.self_attn.relative_attention_bias.weight"]),
+        "layers": _stack(layers, put),
+    }
+
+
 def convert_compressor(sd: StateDict, cfg: QFormerConfig, prefix: str = "model.",
                        put: Put = _contiguous) -> Dict[str, Any]:
     """Q-Former + projections + frame separator."""
@@ -337,16 +378,10 @@ def convert_compressor(sd: StateDict, cfg: QFormerConfig, prefix: str = "model."
 
 def convert_tdc(sd: StateDict, cfg, prefix: str = "model.", put: Optional[Put] = None):
     """Full TDC-Video checkpoint (CambrianQwen/LlamaForCausalLM state dict)
-    -> model.init_tdc's tree.  `cfg` is a config.TDCConfig.  Raises
-    NotImplementedError on the audio model's keys (BEATs, audio_proj)
-    rather than dropping them."""
+    -> model.init_tdc's tree.  `cfg` is a config.TDCConfig.  BEATs and
+    audio_proj are converted where the state dict holds them."""
     put = put or _contiguous
-    audio = [k for k in sd if k.startswith((prefix + "audio_encoder.", prefix + "audio_proj."))]
-    if audio:
-        raise NotImplementedError(
-            f"checkpoint holds audio weights ({audio[0]}, {len(audio)} keys): BEATs and "
-            f"audio_proj are not ported yet, see {AUDIO_ITEM}")
-    return {
+    params = {
         "lm": convert_lm(sd, cfg.lm, prefix=prefix, put=put),
         "siglip": convert_siglip(sd, cfg.siglip, put=put,
                                  prefix=prefix + "vision_tower_aux_list.0.vision_tower.vision_model."),
@@ -357,3 +392,9 @@ def convert_tdc(sd: StateDict, cfg, prefix: str = "model.", put: Optional[Put] =
         "compressor": convert_compressor(sd, cfg.qformer, prefix=prefix, put=put),
         "image_newline": put(sd[prefix + "image_newline"]),
     }
+    if prefix + "audio_proj.weight" in sd:
+        params["audio_proj"] = _lin(sd, prefix + "audio_proj", put=put)
+    beats_prefix = prefix + "audio_encoder.beats."
+    if beats_prefix + "patch_embedding.weight" in sd:
+        params["beats"] = convert_beats(sd, cfg.beats, prefix=beats_prefix, put=put)
+    return params

@@ -1,10 +1,9 @@
 """The port's parameter trees -> the reference's torch state-dict layout
-(port of tdc_video_tpu/convert/to_hf.py, visual model).
+(port of tdc_video_tpu/convert/to_hf.py).
 
 Inverse of convert/from_hf.py.  Leaves may be tensors (on any device) or
 numpy arrays; the exported state dict holds f32 numpy arrays.  Safetensors
-files are written by the writer below (no `safetensors` package).  BEATs
-(audio) is not ported.
+files are written by the writer below (no `safetensors` package).
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .from_hf import AUDIO_ITEM, BF16, SAFETENSORS_DTYPES
+from .from_hf import BF16, SAFETENSORS_DTYPES
 
 Array = np.ndarray
 _DTYPE_NAMES = {np.dtype(v): k for k, v in SAFETENSORS_DTYPES.items()}
@@ -202,6 +201,40 @@ def export_sva(params, prefix: str = "model.") -> Dict[str, Array]:
     return sd
 
 
+def export_beats(params, prefix: str) -> Dict[str, Array]:
+    """Inverse of convert_beats: pos_conv written as weight_g = ||w|| (over
+    axes 0 and 1) and weight_v = w, so that the fold gives w back."""
+    sd: Dict[str, Array] = {}
+    pe = _np(params["patch_embed"]["w"])  # [256, C]
+    p_ = int(np.sqrt(pe.shape[0]))
+    sd[prefix + "patch_embedding.weight"] = pe.reshape(p_, p_, 1, -1).transpose(3, 2, 0, 1)
+    if "b" in params["patch_embed"]:
+        sd[prefix + "patch_embedding.bias"] = _np(params["patch_embed"]["b"])
+    _ln(sd, prefix + "layer_norm", params["patch_norm"])
+    _lin(sd, prefix + "post_extract_proj", params["post_extract_proj"])
+    w = _np(params["pos_conv"]["w"])  # [O, I/G, K]
+    sd[prefix + "encoder.pos_conv.0.weight_g"] = np.sqrt((w * w).sum(axis=(0, 1), keepdims=True))
+    sd[prefix + "encoder.pos_conv.0.weight_v"] = w
+    sd[prefix + "encoder.pos_conv.0.bias"] = _np(params["pos_conv"]["b"])
+    _ln(sd, prefix + "encoder.layer_norm", params["encoder_norm"])
+    for i in range(params["layers"]["q_proj"]["w"].shape[0]):
+        lp = f"{prefix}encoder.layers.{i}."
+        L = _unstack(params["layers"], i)
+        _lin(sd, lp + "self_attn.q_proj", L["q_proj"])
+        _lin(sd, lp + "self_attn.k_proj", L["k_proj"])
+        _lin(sd, lp + "self_attn.v_proj", L["v_proj"])
+        _lin(sd, lp + "self_attn.out_proj", L["o_proj"])
+        _ln(sd, lp + "self_attn_layer_norm", L["attn_norm"])
+        _lin(sd, lp + "fc1", L["fc1"])
+        _lin(sd, lp + "fc2", L["fc2"])
+        _ln(sd, lp + "final_layer_norm", L["final_norm"])
+        _lin(sd, lp + "self_attn.grep_linear", L["grep_linear"])
+        sd[lp + "self_attn.grep_a"] = _np(L["grep_a"]).reshape(1, -1, 1, 1)
+    sd[prefix + "encoder.layers.0.self_attn.relative_attention_bias.weight"] = _np(
+        params["rel_pos_bias"])
+    return sd
+
+
 def export_compressor(params, cfg, prefix: str = "model.") -> Dict[str, Array]:
     sd = export_qformer(params["qformer"], cfg, prefix + "Qformer.bert.")
     _lin(sd, prefix + "query_proj", params["query_proj"])
@@ -213,8 +246,6 @@ def export_compressor(params, cfg, prefix: str = "model.") -> Dict[str, Array]:
 
 def export_tdc(params, cfg, prefix: str = "model.") -> Dict[str, Array]:
     """Full tree -> reference-format flat state dict."""
-    if "beats" in params or "audio_proj" in params:
-        raise NotImplementedError(f"audio weights cannot be exported yet, see {AUDIO_ITEM}")
     sd = export_lm(params["lm"], cfg.lm, prefix)
     sd.update(export_vit(params["siglip"], cfg.siglip,
                          prefix + "vision_tower_aux_list.0.vision_tower.vision_model.", "siglip"))
@@ -223,6 +254,10 @@ def export_tdc(params, cfg, prefix: str = "model.") -> Dict[str, Array]:
     sd.update(export_sva(params["sva"], prefix))
     sd.update(export_compressor(params["compressor"], cfg.qformer, prefix))
     sd[prefix + "image_newline"] = _np(params["image_newline"])
+    if "audio_proj" in params:
+        _lin(sd, prefix + "audio_proj", params["audio_proj"])
+    if "beats" in params:
+        sd.update(export_beats(params["beats"], prefix + "audio_encoder.beats."))
     return sd
 
 

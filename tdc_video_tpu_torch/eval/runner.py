@@ -1,12 +1,14 @@
-"""Single-video QA predictor (port of the visual path of
-tdc_video_tpu/eval/runner.py: TDCPredictor.answer and what it calls).
+"""Single-video QA predictor (port of tdc_video_tpu/eval/runner.py:
+TDCPredictor.answer and what it calls).
 
 Frames are preprocessed on the host (the JAX package's default: PIL's
 bicubic chain, data/images.process_frames) or, with device_preprocess=True,
 on the device.  The tokenizer is any object with `encode(text) -> List[int]`
 and `decode(ids) -> str`; HFTokenizerAdapter wraps a transformers
 tokenizer.  One video's features are cached under the caller's video_uid.
-No audio, batching or speculative decoding in this slice.
+An audio-visual model takes the clip's waveform (`wav`, 16 kHz mono) and
+the second of each frame (`frame_seconds`).  No batching or speculative
+decoding in this slice.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ from ..data.conversation import conv_templates
 from ..data.images import device_preprocess, frame_bucket, pad_frames, process_frames
 from ..data.preprocess import tokenizer_image_token
 from ..device import resolve_device, synchronize
-from ..model import encode_frames
+from ..media.io import window_audio
+from ..model import encode_audio, encode_frames
+from ..ops.audio import second_groups
 from ..serving.generate import generate_encoded
 
 
@@ -92,10 +96,33 @@ def prefill_shape(cfg: TDCConfig, tok, question: str, n_frames: int, max_new_tok
     return shp["max_len"], shp["max_len"] + max_new_tokens
 
 
+def audio_request(wav: np.ndarray, T: int, frame_seconds: np.ndarray):
+    """encode_audio's inputs for one clip, on the host: 10-s windows and
+    their mask, the keep bitmap of the frames' seconds turned into second
+    groups (each kept second with the dropped seconds after it), the group
+    sizes padded with 1 (or cut) to the frame bucket T, and sec_valid
+    masking the seconds past the end of the wav.  Returns (windows, wmask,
+    frame_of_sec, group_pos, group_size, sec_valid)."""
+    wins, wmask = window_audio(wav)
+    S = wins.shape[0] * 10
+    keep = np.zeros(S, np.int64)
+    keep[np.clip(frame_seconds.astype(int), 0, S - 1)] = 1
+    if keep.sum() == 0:
+        keep[0] = 1
+    f, p, g = second_groups(keep)
+    if len(g) < T:
+        g = np.concatenate([g, np.ones(T - len(g), np.int32)])
+    g = g[:T]
+    f = np.clip(f, 0, T - 1)
+    sv = np.arange(S) < max(1, int(len(wav) / 16000))
+    return wins, wmask, f, p, g, sv
+
+
 @dataclass
 class PredictorStats:
     samples: int = 0
     encode_s: float = 0.0
+    audio_s: float = 0.0  # wav -> per-frame audio tokens (0 without audio)
     prefill_s: float = 0.0  # compression + splice + LM prefill
     decode_s: float = 0.0
     decode_steps: int = 0
@@ -168,11 +195,21 @@ class TDCPredictor:
         enc = self.bert_tok(text, padding="max_length", truncation=True, max_length=max_len)
         return np.asarray(enc["input_ids"], np.int32), np.asarray(enc["attention_mask"], bool)
 
+    def encode_audio_tokens(self, wav: np.ndarray, T: int,
+                            frame_seconds: np.ndarray) -> torch.Tensor:
+        """wav -> per-frame audio tokens [T, 50, H] (JAX :308-333)."""
+        dev = self.device
+        args = [torch.from_numpy(x).to(dev) for x in audio_request(wav, T, frame_seconds)]
+        return encode_audio(self.cfg, self.params, *args[:5], T, sec_valid=args[5])
+
     def prepare(self, frames: np.ndarray, question: str, qformer_prompt: Optional[str] = None,
+                wav: Optional[np.ndarray] = None, frame_seconds: Optional[np.ndarray] = None,
                 max_new_tokens: Optional[int] = None, video_uid: Optional[str] = None) -> Dict[str, Any]:
         """Everything `answer` does before generation: prompt ids, frame
-        resample to the token budget, tower encode (cached under an explicit
-        video_uid: id(frames) can be reused after garbage collection).
+        resample to the token budget (frame_seconds with them), tower encode
+        (cached under an explicit video_uid: id(frames) can be reused after
+        garbage collection) and, for an audio-visual model given a wav, the
+        audio encode (frame_seconds defaults to one frame a second).
         Returns {"ids": prompt ids, "gen": keyword arguments of
         generate_encoded}."""
         cfg = self.cfg
@@ -180,12 +217,24 @@ class TDCPredictor:
         cap = min(budget.max_num_frames(cfg, ids, train=False), self.max_eval_frames)
         feat_key = None if video_uid is None else (video_uid, frames.shape, min(cap, len(frames)))
         if len(frames) > cap:
-            frames = frames[[int(len(frames) / cap * i) for i in range(cap)]]
+            idx = [int(len(frames) / cap * i) for i in range(cap)]
+            frames = frames[idx]
+            if frame_seconds is not None:
+                frame_seconds = np.asarray(frame_seconds)[idx]
 
         t0 = time.perf_counter()
         ff, df, fmask, T = self.encode_video(frames, cache_key=feat_key)
         synchronize(self.device)
         self.stats.encode_s = time.perf_counter() - t0
+        atok = None
+        if wav is not None and cfg.audio_input:
+            fs = np.asarray(frame_seconds) if frame_seconds is not None else np.arange(len(frames))
+            t0 = time.perf_counter()
+            atok = self.encode_audio_tokens(wav, T, fs)[None].to(cfg.dtype)
+            synchronize(self.device)
+            self.stats.audio_s = time.perf_counter() - t0
+        else:
+            self.stats.audio_s = 0.0
 
         shp = request_shape(cfg, ids, len(frames), self.text_bucket)
         padded = np.full((shp["L"],), cfg.lm.pad_token_id, np.int64)
@@ -204,6 +253,7 @@ class TDCPredictor:
             frame_mask=dev(fmask)[None],
             qformer_text_ids=dev(qids, torch.int64)[None],
             qformer_text_mask=dev(qmask)[None],
+            audio_tokens=atok,
             text_len=dev([len(ids)], torch.int32),
             token_valid=dev(tv)[None],
             query_pool=dev(qp)[None],
@@ -214,8 +264,10 @@ class TDCPredictor:
         return {"ids": ids, "gen": gen}
 
     def answer(self, frames: np.ndarray, question: str, qformer_prompt: Optional[str] = None,
+               wav: Optional[np.ndarray] = None, frame_seconds: Optional[np.ndarray] = None,
                max_new_tokens: Optional[int] = None, video_uid: Optional[str] = None) -> str:
-        req = self.prepare(frames, question, qformer_prompt, max_new_tokens, video_uid)
+        req = self.prepare(frames, question, qformer_prompt, wav, frame_seconds, max_new_tokens,
+                           video_uid)
         timings: Dict[str, float] = {}
         toks = generate_encoded(self.cfg, self.params, **req["gen"], attn_impl=self.attn_impl,
                                 timings=timings)

@@ -1,7 +1,8 @@
 """Top-level TDC-Video model: towers -> SVA -> segment -> TDC -> LM (port of
-tdc_video_tpu/model.py, visual only: no audio and no frame_pos).
+tdc_video_tpu/model.py; frame_pos is not ported).
 
     encode_frames                     towers + SVA + newline        [T, P, H]
+    encode_audio                      fbank + BEATs + frame pooling  [T, 50, H]
     prepare_visual                    segmentation + TDC compression [Vmax, H]
     prepare_multimodal_inputs         encode + compress + splice     [B, Lmax, H]
     prepare_multimodal_from_features  compression + splice           [B, Lmax, H]
@@ -9,7 +10,8 @@ tdc_video_tpu/model.py, visual only: no audio and no frame_pos).
 
 Training remat (JAX's jax.checkpoint) is torch.utils.checkpoint without
 reentrancy: the SVA in chunks of 16 frames, the per-sample segment+compress
-stage, each Q-Former layer and each LM layer.
+stage, each Q-Former layer and each LM layer, and (for raw audio) each
+sample's audio encode.
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ from .compress.tdc import compress_video, init_compressor
 from .config import TDCConfig
 from .device import resolve_device
 from .models import lm as lm_mod
-from .models.layers import normal_init
+from .models.beats import beats_forward, init_beats
+from .models.layers import init_linear, linear, normal_init
 from .models.sva import init_sva, sva_forward
 from .models.vit import init_vit, vit_forward
+from .ops.audio import kaldi_fbank, pool_seconds_to_frames, window_to_seconds
 from .ops.pooling import adaptive_pool_matrix
 from .ops.segment import segment_boundaries
 
@@ -41,7 +45,7 @@ def init_tdc(cfg: TDCConfig, generator: torch.Generator, device=None, dtype=None
     device = resolve_device(device)
     dt = cfg.param_dtype if dtype is None else dtype
     g = generator
-    return {
+    params = {
         "siglip": init_vit(cfg.siglip, g, device, dt),
         "dino": init_vit(cfg.dino, g, device, dt),
         "sva": init_sva(cfg.sva, (cfg.siglip.hidden_size, cfg.dino.hidden_size),
@@ -50,6 +54,11 @@ def init_tdc(cfg: TDCConfig, generator: torch.Generator, device=None, dtype=None
         "lm": lm_mod.init_lm(cfg.lm, g, device, dt),
         "image_newline": normal_init(g, (cfg.lm.hidden_size,), dt, device),
     }
+    if cfg.audio_input:
+        params["beats"] = init_beats(cfg.beats, g, device, dt)
+        params["audio_proj"] = init_linear(g, cfg.beats.encoder_embed_dim, cfg.lm.hidden_size,
+                                           dt, device)
+    return params
 
 
 def frame_token_len(cfg: TDCConfig) -> int:
@@ -99,6 +108,30 @@ def encode_frames(
     return feats, dino_feats
 
 
+def encode_audio(
+    cfg: TDCConfig,
+    params: Params,
+    wav_windows: torch.Tensor,  # [W, 160000] 10-s windows of 16 kHz audio
+    wav_mask: torch.Tensor,  # [W, 160000] bool
+    frame_of_sec: torch.Tensor,  # [S = W * 10] (ops.audio.second_groups)
+    group_pos: torch.Tensor,  # [S]
+    group_size: torch.Tensor,  # [T]
+    num_frames: int,
+    sec_valid: Optional[torch.Tensor] = None,  # [S] bool
+) -> torch.Tensor:
+    """Per-frame audio tokens [num_frames, 50, H_lm], already through
+    audio_proj (JAX :179-203): fbank (f32), BEATs in cfg.dtype, per-second
+    slicing, pooling of each frame's group of seconds."""
+    fb = kaldi_fbank(wav_windows)
+    fb_mask = wav_mask[:, ::160][:, : fb.shape[1]]
+    tokens, _ = beats_forward(cfg.beats, params["beats"], fb, fb_mask, dtype=cfg.dtype)
+    per_sec = window_to_seconds(tokens)  # [W, 10, 50, C]
+    per_sec = per_sec.reshape((-1,) + per_sec.shape[2:])
+    frame_audio = pool_seconds_to_frames(per_sec, frame_of_sec, group_pos, group_size, num_frames,
+                                         sec_valid)
+    return linear(params["audio_proj"], frame_audio.to(cfg.dtype))
+
+
 def prepare_visual(
     cfg: TDCConfig,
     params: Params,
@@ -107,6 +140,7 @@ def prepare_visual(
     frame_mask: torch.Tensor,  # [T] bool
     qformer_text_ids: Optional[torch.Tensor],  # [Lq]
     qformer_text_mask: Optional[torch.Tensor],  # [Lq]
+    audio_tokens: Optional[torch.Tensor] = None,  # [T, 50, H]
     max_visual_len: int = 4096,
     token_valid: Optional[torch.Tensor] = None,  # [P]
     query_pool: Optional[torch.Tensor] = None,  # [K, P]
@@ -116,8 +150,8 @@ def prepare_visual(
     boundary = segment_boundaries(dino_feats, frame_mask, cfg.compression.max_num_segments)
     return compress_video(
         cfg, params["compressor"], frame_feats, frame_mask, boundary, qformer_text_ids,
-        qformer_text_mask, max_visual_len=max_visual_len, dtype=cfg.compress_dtype,
-        token_valid=token_valid, query_pool=query_pool, remat=remat,
+        qformer_text_mask, audio_feats=audio_tokens, max_visual_len=max_visual_len,
+        dtype=cfg.compress_dtype, token_valid=token_valid, query_pool=query_pool, remat=remat,
     )
 
 
@@ -131,6 +165,13 @@ def prepare_multimodal_inputs(
     frame_mask: torch.Tensor,  # [B, T]
     qformer_text_ids: Optional[torch.Tensor],  # [B, Lq]
     qformer_text_mask: Optional[torch.Tensor],  # [B, Lq]
+    audio_tokens: Optional[torch.Tensor] = None,  # [B, T, 50, H] precomputed
+    audio_windows: Optional[torch.Tensor] = None,  # [B, W, 160000] raw 10-s wav
+    audio_wmask: Optional[torch.Tensor] = None,  # [B, W, 160000]
+    audio_frame_of_sec: Optional[torch.Tensor] = None,  # [B, S]
+    audio_group_pos: Optional[torch.Tensor] = None,  # [B, S]
+    audio_group_size: Optional[torch.Tensor] = None,  # [B, T]
+    audio_sec_valid: Optional[torch.Tensor] = None,  # [B, S]
     labels: Optional[torch.Tensor] = None,  # [B, L]
     text_len: Optional[torch.Tensor] = None,  # [B]
     has_image: Optional[torch.Tensor] = None,  # [B] bool
@@ -143,10 +184,24 @@ def prepare_multimodal_inputs(
 ) -> Dict[str, torch.Tensor]:
     """Encode every frame of the batch as one tower batch, then compress and
     splice (JAX :250-341): dict(embeds [B, max_len, H], attn_mask, labels,
-    seq_len)."""
+    seq_len).  Raw audio windows are encoded per sample in the graph, so
+    that gradients reach BEATs and audio_proj when they train; each
+    sample's encode is checkpointed under remat_encode."""
     if cfg.compression.frame_pos:
         raise NotImplementedError("frame_pos (get_frame_pos) is not ported")
     B, T = frame_mask.shape
+    if audio_tokens is None and audio_windows is not None:
+        def enc(w, wm, f, p_, g, sv):
+            return encode_audio(cfg, params, w, wm, f, p_, g, T, sv)
+
+        per_sample = []
+        for b in range(B):
+            args = (audio_windows[b], audio_wmask[b], audio_frame_of_sec[b], audio_group_pos[b],
+                    audio_group_size[b],
+                    None if audio_sec_valid is None else audio_sec_valid[b])
+            per_sample.append(checkpoint(enc, *args, use_reentrant=False) if remat_encode
+                              else enc(*args))
+        audio_tokens = torch.stack(per_sample)
     flat_sig = siglip_px.reshape((B * T,) + siglip_px.shape[2:])
     flat_dino = dino_px.reshape((B * T,) + dino_px.shape[2:])
     frame_feats, dino_feats = encode_frames(cfg, params, flat_sig, flat_dino, attn_impl=attn_impl,
@@ -155,8 +210,8 @@ def prepare_multimodal_inputs(
     return prepare_multimodal_from_features(
         cfg, params, input_ids, image_pos, frame_feats.reshape(B, T, P, -1),
         dino_feats.reshape(B, T, dino_feats.shape[1], -1), frame_mask, qformer_text_ids,
-        qformer_text_mask, labels=labels, text_len=text_len, has_image=has_image,
-        token_valid=token_valid, query_pool=query_pool, max_len=max_len,
+        qformer_text_mask, audio_tokens=audio_tokens, labels=labels, text_len=text_len,
+        has_image=has_image, token_valid=token_valid, query_pool=query_pool, max_len=max_len,
         max_visual_len=max_visual_len, remat_encode=remat_encode,
     )
 
@@ -171,6 +226,7 @@ def prepare_multimodal_from_features(
     frame_mask: torch.Tensor,  # [B, T]
     qformer_text_ids: Optional[torch.Tensor],  # [B, Lq]
     qformer_text_mask: Optional[torch.Tensor],
+    audio_tokens: Optional[torch.Tensor] = None,  # [B, T, 50, H]
     labels: Optional[torch.Tensor] = None,  # [B, L]
     text_len: Optional[torch.Tensor] = None,  # [B]
     has_image: Optional[torch.Tensor] = None,  # [B] bool; False rows splice no visual
@@ -194,16 +250,18 @@ def prepare_multimodal_from_features(
         K = cfg.compression.context_token_num
         query_pool = torch.from_numpy(adaptive_pool_matrix(P, K)).to(dev)[None].expand(B, K, P)
 
-    def one(ff, df, fm, tid, tmask, tv, qp):
-        return prepare_visual(cfg, params, ff, df, fm, tid, tmask, max_visual_len=max_visual_len,
-                              token_valid=tv, query_pool=qp, remat=remat_encode)
+    def one(ff, df, fm, tid, tmask, tv, qp, atok):
+        return prepare_visual(cfg, params, ff, df, fm, tid, tmask, atok,
+                              max_visual_len=max_visual_len, token_valid=tv, query_pool=qp,
+                              remat=remat_encode)
 
     vis, nvis = [], []
     for b in range(B):
         args = (frame_feats[b], dino_feats[b], frame_mask[b],
                 None if qformer_text_ids is None else qformer_text_ids[b],
                 None if qformer_text_mask is None else qformer_text_mask[b],
-                token_valid[b], query_pool[b])
+                token_valid[b], query_pool[b],
+                None if audio_tokens is None else audio_tokens[b])
         v, nv = checkpoint(one, *args, use_reentrant=False) if remat_encode else one(*args)
         vis.append(v)
         nvis.append(nv)
@@ -229,15 +287,18 @@ def tdc_loss(
     loss_chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """Training loss for a multimodal batch (JAX :485-535): encode, compress,
-    splice, LM cross-entropy.  The audio keys of the JAX batch are not
-    ported and raise."""
-    audio = [k for k in batch if k.startswith("audio_")]
-    if audio:
-        raise NotImplementedError(f"audio inputs are not ported: {audio}")
+    splice, LM cross-entropy.  Audio comes as precomputed `audio_tokens` or
+    as raw `audio_windows` with their masks and second groups."""
     mm = prepare_multimodal_inputs(
         cfg, params, batch["input_ids"], batch["image_pos"], batch["siglip_px"],
         batch["dino_px"], batch["frame_mask"], batch.get("qformer_text_ids"),
-        batch.get("qformer_text_mask"), labels=batch["labels"], text_len=batch.get("text_len"),
+        batch.get("qformer_text_mask"), audio_tokens=batch.get("audio_tokens"),
+        audio_windows=batch.get("audio_windows"), audio_wmask=batch.get("audio_wmask"),
+        audio_frame_of_sec=batch.get("audio_frame_of_sec"),
+        audio_group_pos=batch.get("audio_group_pos"),
+        audio_group_size=batch.get("audio_group_size"),
+        audio_sec_valid=batch.get("audio_sec_valid"), labels=batch["labels"],
+        text_len=batch.get("text_len"),
         has_image=batch.get("has_image"), token_valid=batch.get("token_valid"),
         query_pool=batch.get("query_pool"), max_len=max_len, max_visual_len=max_visual_len,
         attn_impl=attn_impl, remat_encode=remat,

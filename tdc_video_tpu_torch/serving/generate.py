@@ -72,6 +72,7 @@ def prefill_encoded(
     frame_mask: torch.Tensor,
     qformer_text_ids: Optional[torch.Tensor] = None,
     qformer_text_mask: Optional[torch.Tensor] = None,
+    audio_tokens: Optional[torch.Tensor] = None,  # [B, T, 50, H] (encode_audio)
     text_len: Optional[torch.Tensor] = None,
     token_valid: Optional[torch.Tensor] = None,
     query_pool: Optional[torch.Tensor] = None,
@@ -84,8 +85,9 @@ def prefill_encoded(
     max_len + max_new_tokens.  Returns (last-token logits [B, V], cache)."""
     mm = prepare_multimodal_from_features(
         cfg, params, input_ids, image_pos, frame_feats, dino_feats, frame_mask,
-        qformer_text_ids, qformer_text_mask, text_len=text_len, token_valid=token_valid,
-        query_pool=query_pool, max_len=max_len, max_visual_len=max_visual_len,
+        qformer_text_ids, qformer_text_mask, audio_tokens=audio_tokens, text_len=text_len,
+        token_valid=token_valid, query_pool=query_pool, max_len=max_len,
+        max_visual_len=max_visual_len,
     )
     B = input_ids.shape[0]
     cache = lm_mod.init_kv_cache(cfg.lm, B, max_len + max_new_tokens, dtype=cfg.dtype,
@@ -104,6 +106,7 @@ def generate_encoded(
     frame_mask: torch.Tensor,
     qformer_text_ids: Optional[torch.Tensor] = None,
     qformer_text_mask: Optional[torch.Tensor] = None,
+    audio_tokens: Optional[torch.Tensor] = None,  # [B, T, 50, H] (encode_audio)
     text_len: Optional[torch.Tensor] = None,
     token_valid: Optional[torch.Tensor] = None,
     query_pool: Optional[torch.Tensor] = None,
@@ -119,8 +122,9 @@ def generate_encoded(
     t0 = time.perf_counter()
     logits, cache = prefill_encoded(
         cfg, params, input_ids, image_pos, frame_feats, dino_feats, frame_mask,
-        qformer_text_ids, qformer_text_mask, text_len=text_len, token_valid=token_valid,
-        query_pool=query_pool, max_new_tokens=max_new_tokens, max_len=max_len,
+        qformer_text_ids, qformer_text_mask, audio_tokens=audio_tokens, text_len=text_len,
+        token_valid=token_valid, query_pool=query_pool, max_new_tokens=max_new_tokens,
+        max_len=max_len,
         max_visual_len=max_visual_len, attn_impl=attn_impl,
     )
     first = _sample_first(logits)

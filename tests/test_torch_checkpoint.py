@@ -154,13 +154,73 @@ def test_safetensors_writer_read_by_library(tmp_path):
     np.testing.assert_array_equal(out["transposed"], base.T)
 
 
-def test_audio_keys_raise(tmp_path):
-    path = str(tmp_path / "audio")
-    write_checkpoint(path, jc.tdc_tiny(), audio=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tfrom_hf.convert_tdc(tbuilder.load_state_dict(path), tbuilder.read_config(path))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tbuilder.load_pretrained_model(path, load_tokenizer=False, device="cpu")
+@pytest.fixture(scope="module")
+def audio_ckpt(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("audio") / "tdc-tiny-audio")
+    write_checkpoint(path, jc.tdc_tiny(audio=True), audio=True)
+    return path
+
+
+def test_audio_checkpoint_converts_bitwise(audio_ckpt):
+    """An audio-visual checkpoint (BEATs under audio_encoder.beats., and
+    audio_proj): the config reads back at the checkpoint's own BEATs dims,
+    convert_tdc gives JAX's tree bit for bit, beats and audio_proj
+    included, and load_pretrained_model puts the same weights on the
+    device."""
+    ref_cfg, cfg = jbuilder.read_config(audio_ckpt), tbuilder.read_config(audio_ckpt)
+    assert cfg.audio_input and cfg.compression.audio_input
+    for section in ("beats", "compression"):
+        assert dataclasses.asdict(getattr(cfg, section)) == dataclasses.asdict(getattr(ref_cfg, section))
+    assert dataclasses.asdict(cfg.beats) == dataclasses.asdict(tc.BEATS_TINY)
+    ref = jfrom_hf.convert_tdc(jbuilder.load_state_dict(audio_ckpt), ref_cfg)
+    out = tfrom_hf.convert_tdc(tbuilder.load_state_dict(audio_ckpt), cfg)
+    assert "beats" in out and "audio_proj" in out
+    assert_trees_equal(out, ref)
+    _, model, _, _ = tbuilder.load_pretrained_model(audio_ckpt, load_tokenizer=False, device="cpu")
+    assert_trees_equal(model.params, ref)
+
+
+def test_convert_and_export_beats_bitwise():
+    """convert_beats (the weight-normed pos_conv folded) and export_beats on
+    a reference-layout BEATs state dict, against JAX's."""
+    from test_convert import make_beats_sd
+
+    sd = make_beats_sd(jc.BEATS_TINY, prefix="audio_encoder.beats.")
+    ref = jfrom_hf.convert_beats(sd, jc.BEATS_TINY, prefix="audio_encoder.beats.")
+    out = tfrom_hf.convert_beats(sd, tc.BEATS_TINY, prefix="audio_encoder.beats.")
+    assert_trees_equal(out, ref)
+    ref_sd = jto_hf.export_beats(ref, "audio_encoder.beats.")
+    out_sd = tto_hf.export_beats(to_torch(ref), "audio_encoder.beats.")
+    assert sorted(out_sd) == sorted(ref_sd) == sorted(sd)
+    for k in ref_sd:
+        assert out_sd[k].dtype == ref_sd[k].dtype and out_sd[k].shape == ref_sd[k].shape, k
+        np.testing.assert_array_equal(out_sd[k], ref_sd[k], err_msg=k)
+
+
+def test_audio_export_and_round_trip(tmp_path):
+    """export_tdc of an audio-visual tree equals JAX's bit for bit, and
+    save_checkpoint_dir + load_pretrained_model give back the audio
+    config and the same weights."""
+    jcfg, tcfg = jc.tdc_tiny(audio=True), tc.tdc_tiny(audio=True)
+    jp = jmodel.init_tdc(jax.random.PRNGKey(4), jcfg)
+    tp = to_torch(jp)
+    ref = jto_hf.export_tdc(jp, jcfg)
+    out = tto_hf.export_tdc(tp, tcfg)
+    assert sorted(out) == sorted(ref)
+    assert any(k.startswith("model.audio_encoder.beats.") for k in out) and "model.audio_proj.weight" in out
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype and out[k].shape == ref[k].shape, k
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+    path = str(tmp_path / "port")
+    tto_hf.save_checkpoint_dir(tp, tcfg, path)
+    _, model, _, _ = tbuilder.load_pretrained_model(path, load_tokenizer=False,
+                                                    dtype=torch.float32, device="cpu")
+    # config.json keeps the BEATs dims and the audio switches (not every
+    # tdc_tiny field: the SVA's head count and the compression caps are
+    # not written)
+    assert model.cfg.beats == tcfg.beats and model.cfg.lm == tcfg.lm
+    assert model.cfg.audio_input and model.cfg.compression.audio_input
+    assert_trees_equal(model.params, jax.tree_util.tree_map(np.asarray, jp))
 
 
 def test_quantize_raises(ckpt):

@@ -121,6 +121,43 @@ def test_compress_video(max_visual_len, aspect):
     close(vis_t[:n], np.asarray(vis_j)[:n])
 
 
+@pytest.mark.parametrize("max_visual_len", [1024, 150])
+@pytest.mark.parametrize("aspect", [(48, 64), (1, 1)])
+def test_compress_video_audio(max_visual_len, aspect):
+    """tdc_tiny(audio=True): 50 audio tokens per frame after its P visual
+    tokens, in the Q-Former's encoder and each chunk's static block (P + A
+    tokens), not in the pooled query; with the aspect token mask, and a
+    budget small enough to clamp."""
+    jcfg, tcfg = jc.tdc_tiny(audio=True), tc.tdc_tiny(audio=True)
+    params = jtdc.init_compressor(jax.random.PRNGKey(2), jcfg)
+    rng = np.random.default_rng(4)
+    T, P, A, H = 8, 20, 50, 64
+    feats = rng.normal(size=(T, P, H)).astype(np.float32)
+    audio = rng.normal(size=(T, A, H)).astype(np.float32)
+    mask = np.arange(T) < 7
+    boundary = np.array([1, 0, 0, 0, 0, 1, 0, 0], bool)
+    ids = rng.integers(0, 128, (16,)).astype(np.int32)
+    tmask = np.arange(16) < 9
+    tv, qp = jasp.frame_token_layout(jcfg, *aspect)
+    vis_j, n_j = jtdc.compress_video(
+        jcfg, params, jnp.asarray(feats), jnp.asarray(mask), jnp.asarray(boundary),
+        jnp.asarray(ids), jnp.asarray(tmask), jnp.asarray(audio), max_visual_len=max_visual_len,
+        dtype=jnp.float32, token_valid=jnp.asarray(tv), query_pool=jnp.asarray(qp))
+    vis_t, n_t = ttdc.compress_video(
+        tcfg, to_torch(params), t(feats), t(mask), t(boundary), t(ids), t(tmask), t(audio),
+        max_visual_len=max_visual_len, dtype=torch.float32, token_valid=t(tv), query_pool=t(qp))
+    assert int(n_t) == int(n_j)
+    n = int(n_j)
+    close(vis_t[:n], np.asarray(vis_j)[:n])
+    if max_visual_len == 1024:  # no clamp: each chunk's static block carries its A audio tokens
+        _, _, n_chunks = ttdc.assign_chunks(t(boundary), t(mask), tcfg.compression.chunk_size)
+        _, n_noaudio = ttdc.compress_video(
+            tcfg, to_torch(params), t(feats), t(mask), t(boundary), t(ids), t(tmask),
+            max_visual_len=max_visual_len, dtype=torch.float32, token_valid=t(tv),
+            query_pool=t(qp))
+        assert n - int(n_noaudio) == A * int(n_chunks)
+
+
 def test_splice_visual_dynamic():
     """Batched splice vs JAX's per-sample function under vmap."""
     rng = np.random.default_rng(4)

@@ -125,9 +125,12 @@ FWD_CASES = [(1, 129, 129, 7, 1, 128, True), (2, 129, 200, 3, 1, 64, True),
              (1, 1000, 1016, 6, 2, 128, True), (1, 1000, 1000, 7, 1, 64, True),
              (1, 129, 300, 3, 1, 128, False), (2, 200, 145, 7, 1, 72, False),
              (1, 1000, 777, 3, 3, 64, False)]
+# TDC-Qwen2-7B's GQA (28 query heads over 4 KV heads, group 7) at D = 128,
+# causal into a longer cache, as the audio-visual prefill runs it
+QWEN2_7B_CASE = (1, 1000, 1016, 28, 4, 128, True)
 
 
-@pytest.mark.parametrize("case", FWD_CASES)
+@pytest.mark.parametrize("case", FWD_CASES + [QWEN2_7B_CASE])
 def test_k1_forward_tile_edges(cuda, case):
     """K1 in bf16 against its plain version: each query's o within 2e-2 of
     its row norm (as chip_smoke.py holds it), lse within 1e-3."""

@@ -175,7 +175,78 @@ def test_demo_answers_from_checkpoint(demo_ckpt, mp4_path, max_frames, monkeypat
     assert out["answer"] == ref
 
 
-@pytest.mark.parametrize("flag", [["--audio", "a.wav"], ["--quantize", "int8"], ["--kv_quant", "int8"],
+@pytest.fixture(scope="module")
+def audio_demo_ckpt(tmp_path_factory):
+    from tdc_video_tpu.config import tdc_tiny
+    from test_builder import write_checkpoint
+
+    path = str(tmp_path_factory.mktemp("demo_audio") / "tdc-tiny-audio")
+    write_checkpoint(path, tdc_tiny(audio=True), audio=True)
+    return path
+
+
+@pytest.fixture(scope="module")
+def wav_path(tmp_path_factory):
+    """14 s of 16 kHz mono PCM from the standard library's wave module: a
+    440 Hz tone with noise, silent after 12 s."""
+    path = str(tmp_path_factory.mktemp("wav") / "track.wav")
+    rng = np.random.default_rng(5)
+    x = np.arange(14 * 16000) / 16000
+    pcm = 0.4 * np.sin(2 * np.pi * 440 * x) + 0.05 * rng.normal(size=x.shape)
+    pcm[12 * 16000:] = 0.0
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((pcm * 32767).astype(np.int16).tobytes())
+    return path
+
+
+@pytest.mark.parametrize("use_audio_flag", [True, False], ids=["audio_flag", "soundtrack"])
+def test_demo_audio_answers_from_checkpoint(audio_demo_ckpt, mp4_path, wav_path, use_audio_flag,
+                                            monkeypatch):
+    """cli.demo.run on an audio-visual checkpoint against the JAX demo chain
+    (decode_video, load_audio of --audio or else of the video itself,
+    answer(wav=..., frame_seconds=...)), both at f32 compute with an f32
+    compressor: identical ids.  The test clip has no soundtrack, so without
+    --audio both chains answer from the frames alone."""
+    import jax.numpy as jnp
+    import torch
+
+    from tdc_video_tpu import builder as jbuilder
+    from tdc_video_tpu.eval.runner import TDCPredictor as JaxPredictor
+    from tdc_video_tpu_torch import builder as tbuilder
+    from tdc_video_tpu_torch.cli import demo
+    from test_torch_e2e import JaxStubTokenizer
+    from torch_parity import StubTokenizer
+
+    def load_f32(*a, **k):
+        tok, m, pre, ctx = real_load(*a, **dict(k, dtype=torch.float32))
+        cfg = dataclasses.replace(m.cfg, compress_dtype=torch.float32)
+        return tok, tbuilder.TDCModel(cfg, m.params), pre, ctx
+
+    real_load = tbuilder.load_pretrained_model
+    monkeypatch.setattr(tbuilder, "load_pretrained_model", load_f32)
+    extra = ["--audio", wav_path] if use_audio_flag else []
+    args = _demo_args(audio_demo_ckpt, mp4_path, *extra)
+    out = demo.run(args, tokenizer=StubTokenizer())
+    assert out["n_frames"] == 16 and 0 < len(out["ids"]) <= 6
+    _, jm, _, _ = jbuilder.load_pretrained_model(audio_demo_ckpt, load_tokenizer=False,
+                                                 dtype=jnp.float32)
+    jcfg = dataclasses.replace(jm.cfg, compress_dtype=jnp.float32)
+    assert jcfg.audio_input
+    frames, ts = jio.decode_video(mp4_path, fps=jcfg.video_fps, max_frames=args.max_frames)
+    wav = jio.load_audio(wav_path if use_audio_flag else mp4_path)
+    assert (wav is not None) == use_audio_flag
+    assert out["audio_samples"] == (None if wav is None else len(wav))
+    pred = JaxPredictor(jcfg, jm.params, JaxStubTokenizer(), max_new_tokens=args.max_new_tokens,
+                        max_eval_frames=args.max_frames)
+    ref = pred.answer(frames, args.question, wav=wav, frame_seconds=ts,
+                      max_new_tokens=args.max_new_tokens, video_uid=mp4_path)
+    assert out["answer"] == ref
+
+
+@pytest.mark.parametrize("flag", [["--quantize", "int8"], ["--kv_quant", "int8"],
                                   ["--spec_window", "4"], ["--profile", "logs"]],
                          ids=lambda f: f[0])
 def test_demo_options_not_ported_raise(demo_ckpt, mp4_path, flag):

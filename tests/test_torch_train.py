@@ -1,7 +1,8 @@
 """Port parity of the training path on tdc_tiny in f32, on the CPU: the LM
 loss, the multimodal loss and its gradients, the freeze policy and optimizer
 groups, the schedule, and a short run of the Trainer against the JAX
-Trainer on the same bridged params and batches.
+Trainer on the same bridged params and batches; the multimodal loss also
+with the audio keys, on tdc_tiny(audio=True).
 
 Tolerances: losses and gradients 3e-4 (the golden suite's f32 tolerance;
 the two frameworks sum in other orders); schedules 1e-6 relative (optax
@@ -20,6 +21,7 @@ from tdc_video_tpu import config as jc
 from tdc_video_tpu import model as jm
 from tdc_video_tpu.constants import IGNORE_INDEX
 from tdc_video_tpu.models import lm as jlm
+from tdc_video_tpu.ops import audio as jaudio
 from tdc_video_tpu.parallel.mesh import make_mesh
 from tdc_video_tpu.train import stages as jstages
 from tdc_video_tpu.train import trainer as jtr
@@ -160,6 +162,75 @@ def test_tdc_loss_and_grads(jparams):
         close(got, g)
         nonzero += bool(np.abs(np.asarray(g)).max() > 0)
     assert nonzero > 100  # towers, SVA, compressor and LM all receive gradients
+
+
+def _audio_batch(cfg, source, B=2, T=4):
+    """_batch plus the audio keys: precomputed per-frame `audio_tokens`, or
+    one raw 10-s window per sample with its mask and second groups (frames
+    at seconds 0, 2, 5, 7 of sample 0 and 0, 1, 2, 6 of sample 1; sample
+    1's audio ends at 8 s)."""
+    b = _batch(cfg, B=B, T=T)
+    rng = np.random.default_rng(7)
+    if source == "tokens":
+        b["audio_tokens"] = rng.normal(0, 1, (B, T, 50, cfg.lm.hidden_size)).astype(np.float32)
+        return b
+    x = np.arange(160000) / 16000
+    wins = np.stack([0.3 * np.sin(2 * np.pi * f0 * x) + 0.05 * rng.normal(size=x.shape)
+                     for f0 in (440.0, 700.0)]).astype(np.float32)[:, None]
+    wmask = np.ones(wins.shape, bool)
+    wins[1, 0, 128000:], wmask[1, 0, 128000:] = 0.0, False
+    groups = []
+    for secs in ([0, 2, 5, 7], [0, 1, 2, 6]):
+        keep = np.zeros(10, np.int64)
+        keep[secs] = 1
+        groups.append(jaudio.second_groups(keep))
+    b.update(audio_windows=wins, audio_wmask=wmask,
+             audio_frame_of_sec=np.stack([g[0] for g in groups]),
+             audio_group_pos=np.stack([g[1] for g in groups]),
+             audio_group_size=np.stack([g[2] for g in groups]),
+             audio_sec_valid=np.stack([np.ones(10, bool), np.arange(10) < 8]))
+    return b
+
+
+@pytest.mark.parametrize("source", ["tokens", "windows"])
+def test_tdc_loss_audio_and_grads(source):
+    """tdc_loss on tdc_tiny(audio=True) with the audio keys, at 3e-4: with
+    precomputed audio_tokens, the loss and its gradient with respect to
+    those tokens; with raw audio_windows encoded in the graph (fbank,
+    BEATs, pooling, audio_proj; checkpointed per sample under remat), the
+    loss and the gradients of audio_proj and of every BEATs leaf."""
+    jcfg = dataclasses.replace(jc.tdc_tiny(audio=True), compress_dtype=jnp.float32)
+    tcfg = dataclasses.replace(tc.tdc_tiny(audio=True), compress_dtype=torch.float32)
+    jp = jm.init_tdc(jax.random.PRNGKey(5), jcfg)
+    b = _audio_batch(jcfg, source)
+    fixed = {k: v for k, v in b.items() if k != "audio_tokens"}
+    free = {k: v for k, v in b.items() if k == "audio_tokens"}
+    kw = dict(max_len=24 + 160, max_visual_len=160, remat=True)
+
+    def jloss(p, x):
+        return jm.tdc_loss(jcfg, p, {**{k: jnp.asarray(v) for k, v in fixed.items()}, **x}, **kw)
+
+    ref, (gp, gx) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
+        jp, {k: jnp.asarray(v) for k, v in free.items()})
+    tp = to_torch(jp)
+    for x in tree_leaves(tp):
+        x.requires_grad_()
+    tfree = {k: t(v).requires_grad_() for k, v in free.items()}
+    loss = tm.tdc_loss(tcfg, tp, {**{k: t(v) for k, v in fixed.items()}, **tfree}, **kw)
+    loss.backward()
+    close(loss, ref)
+    if source == "tokens":
+        close(tfree["audio_tokens"].grad, gx["audio_tokens"])
+        assert np.abs(np.asarray(gx["audio_tokens"])).max() > 0
+        return
+    port = _port_by_names(tp)
+    n = 0
+    for names, g in _jax_leaves_with_names(gp):
+        if names[0] in ("audio_proj", "beats"):
+            close(port[tuple(names)].grad, g)
+            n += 1
+    assert n == 2 + len(jax.tree_util.tree_leaves(jp["beats"]))
+    assert np.abs(np.asarray(gp["audio_proj"]["w"])).max() > 0
 
 
 # ---------------------------------------------------------------------------
