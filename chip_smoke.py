@@ -39,7 +39,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    to each other (the loss, all LM gradients, and each layer's q/k/v/o
    projection gradient on its own); then 2 optimizer steps (4 micro-steps) through
    Trainer.train_step, with the launch counters read per micro-step, and a
-   fifth micro-step under torch.profiler;
+   fifth micro-step under torch.profiler; then lm_loss's chunked head alone
+   (forward, recompute and backward at 8191 rows), timed through the port's
+   head (bf16 GEMMs with f32 output) and through the f32 product it
+   replaced, on the same inputs;
 7. the same preset with the towers trainable and the LM frozen: 2 optimizer
    steps of one micro-step each (the first update of a warmup from 0 has
    learning rate 0), which run the tower backward (K4, K5, K6), and a third
@@ -81,8 +84,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bitwise equal.  Printed: encode_audio's stages (fbank, BEATs, pooling),
    the warm answer's wall time and stages, peak device memory, the audio
    encode's device busy share under torch.profiler, decode seconds per
-   token and the untied head's lm_head time per step.  Every kernel's entry
-   gets its launches on this path (`launches_av`).
+   token and the untied head's lm_head time per step (and that of the f32
+   product it replaced).  Every kernel's entry gets its launches on this
+   path (`launches_av`);
+10. the demo's serving options, run right after phase 5 on phase 3's model
+   and request, each leg printing one JSON line with the card: (a) a
+   weight-only int8 copy of the LM: prefill logits within 0.05 (relative
+   to their max) of the bf16 ones, answer agreement, decode ms a token and a
+   step, lm_head ms, peak memory; (b) the LM and both towers int8, the
+   towers' static scales calibrated on the request's own frames, act-quant
+   prefill: its logits within 0.08 of the bf16 LM's on the same inputs,
+   the encode features within 0.08 (norm) of the bf16 towers', the
+   end-to-end logits' drift printed, encode and prefill seconds against
+   bf16, K2 and K3 launched; (c) an int8 KV cache: prefill and first decode-step
+   logits within 0.05 of the bf16 cache's, decode ms, K1 launched; (d)
+   speculative decoding with a window of 8: the answer token-identical to
+   the plain one, or parting first where the plain run's top-2 logit gap is
+   under 1e-2 (printed), verify steps and tokens per step; (e) a
+   torch.profiler trace of one answer written by utils/profiling.trace,
+   which must name a K1 launch.  The quantized copies are freed before
+   phase 6; each kernel's entry gets its launches on legs (a)-(d)
+   (`launches_int8`, `launches_int8_all`, `launches_kv_int8`,
+   `launches_spec`).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -186,12 +209,16 @@ def ptxas_report(lib: str):
     return name, regs, spills, serialized
 
 
-def phase_device_build():
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(smi)
+
+
+def phase_device_build():
+    log(card())
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     from tdc_video_tpu_torch.ops import build
@@ -716,6 +743,249 @@ def phase_profile(pred, frames):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10
+# ---------------------------------------------------------------------------
+
+# drift bounds against float, those of the JAX package's tests/test_quant.py:
+# weight-only int8 LM and int8 KV cache logits (test_lm_logits_drift_bounded,
+# TestInt8KVCache: max abs difference over max abs logit); the act-quant
+# prefill's logits against the float LM's on the same inputs
+# (TestInt8ActQuantPrefill); the int8 towers' encode_frames features
+# against the float towers' (test_encode_compress_int8_drift: norm of the
+# difference over the norm)
+INT8_REL = 0.05
+ACT_QUANT_REL = 0.08
+ENCODE_INT8_REL = 0.08
+# a speculative answer may part from the plain one only on a near tie
+SPEC_TIE_GAP = 1e-2
+SPEC_WINDOW = 8
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _answer(pred, frames, tag):
+    """One warm answer with the launch counters set to 0 just before and
+    read just after: (ids, stats, launches, peak GiB, wall s)."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = dict(fa.launches)
+    st = dataclasses.replace(pred.stats, last_ids=list(pred.stats.last_ids))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[10] {tag} answer: wall {wall:.3f} s: encode {st.encode_s:.3f} s, compress+prefill "
+        f"{st.prefill_s:.3f} s, decode {st.decode_s:.3f} s ({st.decode_steps} steps); peak "
+        f"{peak:.2f} GiB; launches {json.dumps(counts)}; ids {st.last_ids}")
+    return st.last_ids, st, counts, peak, wall
+
+
+def _leg(name: str, **numbers):
+    """One JSON line per leg, its numbers beside the card."""
+    log(json.dumps({"phase": 10, "leg": name, **numbers, "card": card()}))
+
+
+def _decode_step_ms(cfg, params, gen, **kw) -> float:
+    """Device ms of one decode step after this request's prefill (a cache
+    with room for the timed steps)."""
+    from tdc_video_tpu_torch.models import lm as lm_mod
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    logits, cache = prefill_encoded(cfg, params, **dict(gen, max_new_tokens=256), attn_impl="flash",
+                                    **kw)
+    emb = lm_mod.embed_tokens(cfg.lm, params["lm"], logits.argmax(-1)[:, None], cfg.dtype)
+    return time_ms(lambda: lm_mod.decode_step(cfg.lm, params["lm"], emb, cache, attn_impl="flash",
+                                              dtype=cfg.dtype), reps=20, rounds=5)
+
+
+def _first_difference_gap(cfg, params, gen, ids, other):
+    """Where two answers first part: (position, top-2 gap of the plain run's
+    logits there), the logits recomputed by feeding the plain ids."""
+    from tdc_video_tpu_torch.models import lm as lm_mod
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    p = next(i for i in range(max(len(ids), len(other)))
+             if i >= len(ids) or i >= len(other) or ids[i] != other[i])
+    logits, cache = prefill_encoded(cfg, params, **gen, attn_impl="flash")
+    for tok in ids[:p]:
+        emb = lm_mod.embed_tokens(cfg.lm, params["lm"], torch.tensor([[tok]], device=DEVICE),
+                                  cfg.dtype)
+        logits, cache = lm_mod.decode_step(cfg.lm, params["lm"], emb, cache, attn_impl="flash",
+                                           dtype=cfg.dtype)
+    top2 = torch.topk(logits[0].float(), 2).values
+    return p, float(top2[0] - top2[1])
+
+
+def phase_serving_options(cfg, params, pred, frames, ids):
+    """Phase 10: the demo's serving options on phase 3's TDC-Llama3.2-3B
+    and request: (a) int8 LM, (b) int8 LM and towers with static scales and
+    act-quant prefill, (c) int8 KV cache, (d) speculative decoding, (e) a
+    torch.profiler trace of one answer.  Returns each leg's launch counts."""
+    from tdc_video_tpu_torch.data.images import device_preprocess
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.models import lm as lm_mod
+    from tdc_video_tpu_torch.models.quant import (
+        calibrate_vit_act_scales,
+        quantize_lm_int8,
+        quantize_vit_int8,
+    )
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+    from tdc_video_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    def predictor(p, **kw):
+        return TDCPredictor(cfg, p, ByteTokenizer(), bert_tokenizer=None, device_preprocess=True,
+                            device=dev, **kw)
+
+    gen = pred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)["gen"]
+    ref_logits = prefill_encoded(cfg, params, **gen, attn_impl="flash")[0].float()
+    bf16_ids, bf16_st, _, bf16_peak, _ = _answer(pred, frames, "bf16")
+    if bf16_ids != ids:
+        raise AssertionError(f"[10] the bf16 answer differs from phase 3's: {bf16_ids} vs {ids}")
+    bf16_step_ms = _decode_step_ms(cfg, params, gen)
+    hidden = torch.randn((1, 1, cfg.lm.hidden_size), device=dev).to(cfg.dtype)
+    counts = {}
+
+    # (a) weight-only int8 LM
+    t0 = time.perf_counter()
+    qparams = dict(params, lm=quantize_lm_int8(params["lm"]))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qpred = predictor(qparams)
+    q_logits = prefill_encoded(cfg, qparams, **gen, attn_impl="flash")[0].float()
+    rel = _rel(q_logits, ref_logits)
+    q_ids, q_st, counts["int8"], q_peak, _ = _answer(qpred, frames, "int8 LM")
+    agree = sum(a == b for a, b in zip(q_ids, ids)) / max(len(ids), 1)
+    head = {k: time_ms(lambda: lm_mod.lm_head(cfg.lm, p["lm"], hidden), reps=5, rounds=3)
+            for k, p in (("int8", qparams), ("bf16", params))}
+    step = {"int8": _decode_step_ms(cfg, qparams, gen), "bf16": bf16_step_ms}
+    _leg("a_int8", quantize_s=quant_s, prefill_rel=rel, prefill_rel_bound=INT8_REL,
+         prefill_argmax_same=bool(q_logits.argmax(-1).item() == ref_logits.argmax(-1).item()),
+         answer_agreement=agree,
+         decode_ms_per_token={"int8": 1e3 * q_st.decode_s / max(q_st.decode_steps, 1),
+                              "bf16": 1e3 * bf16_st.decode_s / max(bf16_st.decode_steps, 1)},
+         decode_step_device_ms=step,
+         lm_head_ms=dict(head, tied=cfg.lm.tie_word_embeddings),
+         peak_gib={"int8": q_peak, "bf16": bf16_peak})
+    if not rel < INT8_REL or not torch.isfinite(q_logits).all():
+        raise AssertionError(f"[10a] int8 prefill logits rel {rel:.4e} (bound {INT8_REL})")
+
+    # (b) int8 LM and towers, static scales from the request's own frames,
+    # act-quant prefill
+    t0 = time.perf_counter()
+    sig, dino = device_preprocess(torch.from_numpy(frames).to(dev), cfg)
+    scales = {t: calibrate_vit_act_scales(getattr(cfg, t), params[t], px.to(cfg.dtype),
+                                          dtype=cfg.dtype)
+              for t, px in (("siglip", sig), ("dino", dino))}
+    del sig, dino
+    aparams = dict(qparams, **{t: quantize_vit_int8(params[t], act_scales=scales[t])
+                               for t in scales})
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    apred = predictor(aparams, act_quant=True)
+    a_gen = apred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)["gen"]
+    a_logits = prefill_encoded(cfg, aparams, **a_gen, attn_impl="flash",
+                               act_quant=True)[0].float()
+    # the LM's drift on its own inputs (the int8 towers' request), and the
+    # towers' drift on the encode features, each against float
+    lm_ref = prefill_encoded(cfg, dict(aparams, lm=params["lm"]), **a_gen,
+                             attn_impl="flash")[0].float()
+    rel_lm = _rel(a_logits, lm_ref)
+
+    def nrel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    enc = {"frame_feats": nrel(a_gen["frame_feats"], gen["frame_feats"]),
+           "dino_feats": nrel(a_gen["dino_feats"], gen["dino_feats"])}
+    a_ids, a_st, counts["int8_all"], a_peak, _ = _answer(apred, frames, "int8-all")
+    _leg("b_int8_all", calibrate_and_quantize_s=calib_s, act_quant_prefill_rel=rel_lm,
+         act_quant_prefill_rel_bound=ACT_QUANT_REL, encode_feature_rel=enc,
+         encode_feature_rel_bound=ENCODE_INT8_REL,
+         end_to_end_prefill_rel=_rel(a_logits, ref_logits),
+         prefill_argmax_same=bool(a_logits.argmax(-1).item() == ref_logits.argmax(-1).item()),
+         answer_agreement=sum(a == b for a, b in zip(a_ids, ids)) / max(len(ids), 1),
+         encode_s={"int8": a_st.encode_s, "bf16": bf16_st.encode_s},
+         prefill_s={"int8_act_quant": a_st.prefill_s, "bf16": bf16_st.prefill_s},
+         launches=counts["int8_all"], peak_gib=a_peak)
+    if not rel_lm < ACT_QUANT_REL or not torch.isfinite(a_logits).all():
+        raise AssertionError(f"[10b] act-quant prefill logits rel {rel_lm:.4e} "
+                             f"(bound {ACT_QUANT_REL})")
+    if not enc["frame_feats"] < ENCODE_INT8_REL:
+        raise AssertionError(f"[10b] int8 towers' encode features rel {enc['frame_feats']:.4e} "
+                             f"(bound {ENCODE_INT8_REL})")
+    if counts["int8_all"]["full_attention_nhd"] <= 0 or \
+            counts["int8_all"]["full_attention_nhd_seqq"] <= 0:
+        raise AssertionError("[10b] K2 and K3 were not launched in the int8 towers")
+    del qpred, apred, aparams, qparams, a_gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) int8 KV cache: the prefill attends the fresh bf16 keys (K1), the
+    # first decode step reads the quantized cache back
+    kv = {}
+    for name, quant in (("int8", "int8"), ("bf16", None)):
+        lg, cache = prefill_encoded(cfg, params, **gen, attn_impl="flash", kv_quant=quant)
+        emb = lm_mod.embed_tokens(cfg.lm, params["lm"], lg.argmax(-1)[:, None], cfg.dtype)
+        kv[name] = (lg.float(), lm_mod.decode_step(cfg.lm, params["lm"], emb, cache,
+                                                   attn_impl="flash", dtype=cfg.dtype)[0].float())
+        del cache
+    rel_kv, rel_kv_step = _rel(kv["int8"][0], kv["bf16"][0]), _rel(kv["int8"][1], kv["bf16"][1])
+    kvpred = predictor(params, kv_quant="int8")
+    kv_ids, kv_st, counts["kv_int8"], kv_peak, _ = _answer(kvpred, frames, "int8 KV")
+    _leg("c_kv_int8", prefill_rel=rel_kv, first_decode_step_rel=rel_kv_step,
+         prefill_rel_bound=INT8_REL,
+         answer_agreement=sum(a == b for a, b in zip(kv_ids, ids)) / max(len(ids), 1),
+         decode_ms_per_token={"int8_kv": 1e3 * kv_st.decode_s / max(kv_st.decode_steps, 1),
+                              "bf16": 1e3 * bf16_st.decode_s / max(bf16_st.decode_steps, 1)},
+         decode_step_device_ms={"int8_kv": _decode_step_ms(cfg, params, gen, kv_quant="int8"),
+                                "bf16": bf16_step_ms},
+         launches=counts["kv_int8"], peak_gib=kv_peak)
+    if not rel_kv < INT8_REL or not rel_kv_step < INT8_REL:
+        raise AssertionError(f"[10c] int8 KV logits rel {rel_kv:.4e} / {rel_kv_step:.4e} "
+                             f"(bound {INT8_REL})")
+    if counts["kv_int8"]["flash_kernel"] <= 0:
+        raise AssertionError("[10c] K1 was not launched over the int8 cache's prefill")
+
+    # (d) prompt-lookup speculative decoding, window 8
+    spred = predictor(params, spec_window=SPEC_WINDOW)
+    s_ids, s_st, counts["spec"], _, _ = _answer(spred, frames, f"spec_window={SPEC_WINDOW}")
+    tie = None
+    if s_ids != ids:
+        tie = _first_difference_gap(cfg, params, gen, ids, s_ids)
+        log(f"[10] the speculative answer parts from the plain one at position {tie[0]}, where "
+            f"the plain run's top-2 logit gap is {tie[1]:.4e} (near tie below {SPEC_TIE_GAP})")
+    _leg("d_spec", window=SPEC_WINDOW, identical=s_ids == ids, first_difference=tie,
+         verify_steps=s_st.decode_steps,
+         tokens_after_first_per_verify_step=(len(s_ids) - 1) / max(s_st.decode_steps, 1),
+         decode_s={"spec": s_st.decode_s, "plain": bf16_st.decode_s},
+         plain_decode_steps=bf16_st.decode_steps)
+    if tie is not None and not tie[1] < SPEC_TIE_GAP:
+        raise AssertionError(f"[10d] the speculative answer differs off a near tie: {s_ids}")
+
+    # (e) a torch.profiler trace around one answer names K1's launch
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir):
+            pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+        path = os.path.join(logdir, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as fh:
+            names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    k1 = sorted(n for n in names if port_kernel(n) == "flash_kernel")
+    _leg("e_trace", trace_bytes=size, events_named=len(names), k1_names=k1[:2])
+    if not k1:
+        raise AssertionError("[10e] the trace names no K1 launch")
+    log(f"[10] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phases 6-7
 # ---------------------------------------------------------------------------
 
@@ -930,7 +1200,58 @@ def phase_train(cfg):
     # a fifth micro-step (it accumulates, no update) under the profiler
     profile_stage("6", "micro-step 5 under torch.profiler", lambda: trainer.train_step(batch))
     del trainer, snap, view
+    clear_grads(params)
+    ms, f32_ms = head_loss_ms(cfg, params, tcfg.model_max_length - 1, tcfg.loss_chunk)
+    log(f"[6] lm_loss's chunked head alone ({tcfg.model_max_length - 1} rows, chunks of "
+        f"{tcfg.loss_chunk}, forward + recompute + backward): {ms:.3f} ms device through "
+        f"layers.dot_f32 (bf16 GEMMs, f32 out, the cast hoisted), {f32_ms:.3f} ms through the "
+        f"f32 product it replaced (per-chunk cast, f32 copies); {card()}")
+    clear_grads(params)
     return params, counts
+
+
+def clear_grads(params):
+    for t in _leaves(params):
+        t.grad = None
+
+
+def head_loss_ms(cfg, params, n_rows: int, chunk: int):
+    """Device ms of lm_loss's head alone (logits, log-softmax, the checkpoint
+    recompute and the backward into the hidden states and the head weight)
+    at n_rows rows: through the port's head (one bf16 cast of the weight,
+    bf16 GEMMs with f32 output), and through the f32 product the port ran
+    before (the weight cast in every chunk and recompute, f32 copies of
+    both operands), on the same inputs."""
+    from torch.utils.checkpoint import checkpoint
+
+    from tdc_video_tpu_torch.models import lm as lm_mod
+
+    lmp = params["lm"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    h = torch.randn((1, n_rows, cfg.lm.hidden_size), generator=g, device=DEVICE).to(cfg.dtype)
+    h.requires_grad_()
+    tgt = torch.randint(0, cfg.lm.vocab_size, (1, n_rows), generator=g, device=DEVICE)
+    vf = torch.ones((1, n_rows), device=DEVICE)
+
+    def f32_ll(hc, tc, vc, _head):
+        w = lm_mod.head_weight(cfg.lm, lmp, hc.dtype)[0]
+        logp = torch.log_softmax(hc.float() @ w.float(), dim=-1)
+        return (torch.take_along_dim(logp, tc[..., None], dim=-1)[..., 0] * vc).sum()
+
+    def port_ll(hc, tc, vc, head):
+        return lm_mod._token_ll(cfg.lm, lmp, hc, tc, vc, head)
+
+    def run(fn, hoist):
+        head = lm_mod.head_weight(cfg.lm, lmp, cfg.dtype) if hoist else None
+        total = 0.0
+        for c0 in range(0, n_rows, chunk):
+            sl = slice(c0, c0 + chunk)
+            total = total + checkpoint(fn, h[:, sl], tgt[:, sl], vf[:, sl], head,
+                                       use_reentrant=False)
+        total.backward()
+
+    return (time_ms(lambda: run(port_ll, True), reps=1, rounds=3, warmup=1),
+            time_ms(lambda: run(f32_ll, False), reps=1, rounds=3, warmup=1))
 
 
 def phase_tower_train(cfg, params):
@@ -1378,13 +1699,18 @@ def phase_audio_visual():
         + ", ".join(f"{k} {v / 1e3:.5f} s" for k, v in ms.items()))
     profile_stage("9", "encode_audio (bf16)", lambda: enc(cfg, params, dargs))
 
-    # decode: the untied head's f32 copy (dot_f32) on every step
+    # decode: the untied head of a step, through layers.dot_f32 (a bf16 GEMV
+    # with f32 output) and through the f32 product it replaced (an f32 copy
+    # of the head made and read every step)
     hidden = torch.randn((1, 1, cfg.lm.hidden_size), device=dev).to(cfg.dtype)
     head_ms = time_ms(lambda: lm_mod.lm_head(cfg.lm, params["lm"], hidden), reps=5, rounds=3)
+    w_head = params["lm"]["lm_head"]["w"]
+    f32_ms = time_ms(lambda: hidden.float() @ w_head.to(hidden.dtype).float(), reps=5, rounds=3)
     head_bytes = cfg.lm.hidden_size * cfg.lm.vocab_size
     log(f"[9] decode {st.decode_s / max(st.decode_steps, 1):.4f} s per token; lm_head alone "
-        f"{head_ms:.3f} ms a step ({head_bytes * 2 / 1e9:.2f} GB bf16 head read, cast to a "
-        f"{head_bytes * 4 / 1e9:.2f} GB f32 copy and read again)")
+        f"{head_ms:.3f} ms device a step ({head_bytes * 2 / 1e9:.2f} GB bf16 head read once, "
+        f"bound {head_bytes * 2 / PEAK_BYTES * 1e3:.3f} ms), {f32_ms:.3f} ms through the f32 "
+        f"product it replaced (a {head_bytes * 4 / 1e9:.2f} GB f32 copy made and read); {card()}")
     del params, pred, p32, p_cpu
     gc.collect()
     torch.cuda.empty_cache()
@@ -1446,6 +1772,7 @@ def main() -> int:
     # K2's device time per launch in encode, beside its `ms` (host work included)
     ms, n = phase_profile(pred, frames)["encode"]["full_attention_nhd"]
     next(r for r in rows if r["name"] == "full_attention_nhd")["device_ms"] = ms / n
+    counts10 = phase_serving_options(cfg, params, pred, frames, list(pred.stats.last_ids))
     del params, pred
     gc.collect()
     torch.cuda.empty_cache()
@@ -1475,8 +1802,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1_av, counts_av = phase_audio_visual()
     k1_av["launches_av"] = counts_av["flash_kernel"]
-    for r in rows + train_rows:  # each kernel's launches on phase 9's path
+    for r in rows + train_rows:  # each kernel's launches on phase 9's and 10's paths
         r["launches_av"] = counts_av[r["name"]]
+        for leg, c in counts10.items():
+            r[f"launches_{leg}"] = c[r["name"]]
     print(json.dumps({"kernels": rows + train_rows + [k1_av]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

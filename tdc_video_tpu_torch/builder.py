@@ -5,7 +5,8 @@ Reads a TDC-Video checkpoint directory (config.json + safetensors or .bin
 shards), maps the state dict into the port's parameter tree
 (convert/from_hf.py) leaf by leaf onto the device, and handles the LoRA
 flavour (base model + adapter deltas merged in numpy) and projector-only
-adapters.  Quantized loading is not ported.
+adapters.  quantize="int8" makes the LM weight-only int8; "int8-all" also
+makes both towers int8 (models/quant.py).
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ import torch
 from . import config as C
 from .convert import from_hf
 from .device import resolve_device
-
-QUANT_ITEM = "ROADMAP.md queue 1 item 5 (quantization)"
 
 
 def read_config(model_path: str) -> C.TDCConfig:
@@ -169,8 +168,9 @@ def load_pretrained_model(
     model_name: Optional[str] = None,
     dtype: Optional[torch.dtype] = None,
     load_tokenizer: bool = True,
-    quantize: Optional[str] = None,
+    quantize: Optional[str] = None,  # "int8": weight-only int8 LM; "int8-all": + int8 towers
     device=None,
+    calib_pixels: Optional[Tuple[Any, Any]] = None,  # (siglip_px, dino_px): static tower scales
 ) -> Tuple[Any, TDCModel, list, int]:
     """Reference-compatible loader: returns (tokenizer, model,
     image_preprocess_list, context_len).
@@ -178,10 +178,11 @@ def load_pretrained_model(
     `dtype` sets the compute dtype (cfg.dtype); the float weights are kept
     in cfg.param_dtype (f32), as in the JAX package.  The state dict is
     memory-mapped and converted leaf by leaf onto `device` (CUDA unless
-    "cpu" is asked for)."""
-    if quantize not in (None, "none"):
-        if quantize in ("int8", "int8-all"):
-            raise NotImplementedError(f"quantize={quantize!r} is not ported yet, see {QUANT_ITEM}")
+    "cpu" is asked for).  quantize="int8" quantizes the LM (weight-only);
+    "int8-all" also both towers, with static activation scales calibrated
+    on `calib_pixels` (normalized [N, H, W, 3] batches, run through the float
+    towers once) when given, per-token scales otherwise."""
+    if quantize not in (None, "none", "int8", "int8-all"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
     device = resolve_device(device)
     model_name = model_name or os.path.basename(model_path)
@@ -208,6 +209,16 @@ def load_pretrained_model(
 
     params = from_hf.convert_tdc(sd, cfg, put=_to_device(device, cfg.param_dtype))
     del sd
+    if quantize in ("int8", "int8-all"):
+        from .models.quant import calibrate_vit_act_scales, quantize_lm_int8, quantize_vit_int8
+
+        params["lm"] = quantize_lm_int8(params["lm"])
+        if quantize == "int8-all":
+            for tower, px in zip(("siglip", "dino"), calib_pixels or (None, None)):
+                scales = None if px is None else calibrate_vit_act_scales(
+                    getattr(cfg, tower), params[tower],
+                    torch.as_tensor(np.asarray(px), device=device), dtype=cfg.dtype)
+                params[tower] = quantize_vit_int8(params[tower], act_scales=scales)
 
     tokenizer = None
     if load_tokenizer:

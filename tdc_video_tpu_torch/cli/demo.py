@@ -7,23 +7,19 @@ checkpoint hears --audio, or else the video's own soundtrack.
 
 Runs on CUDA unless --device cpu.  The tokenizer is read from the
 checkpoint directory with transformers; `run(args, tokenizer=...)` takes
-any tokenizer with encode/decode instead.  --quantize, --kv_quant,
---spec_window and --profile are not ported yet and raise.
+any tokenizer with encode/decode instead.  --quantize int8 makes the LM
+weight-only int8 and int8-all also the towers (with s8 x s8 prefill);
+--kv_quant int8 an int8 KV cache; --spec_window N (>= 2) prompt-lookup
+speculative decoding, token-identical to plain greedy; --profile LOGDIR
+writes a torch.profiler trace of the answer into LOGDIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any, Dict
-
-# each option the port does not have yet, and the ROADMAP.md item that ports it
-NOT_PORTED = {
-    "quantize": "queue 1 item 5 (quantization)",
-    "kv_quant": "queue 1 item 5 (quantization)",
-    "spec_window": "queue 1 item 6 (serving extras)",
-    "profile": "queue 1 item 9 (utils/profiling.py)",
-}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -39,10 +35,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max_frames", type=int, default=1000)
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="accepted as in the JAX demo, which decodes greedily whatever its value")
-    ap.add_argument("--kv_quant", default=None, choices=["int8"])
-    ap.add_argument("--spec_window", type=int, default=0)
-    ap.add_argument("--quantize", default=None, choices=["int8", "int8-all"])
-    ap.add_argument("--profile", default=None, metavar="LOGDIR")
+    ap.add_argument("--kv_quant", default=None, choices=["int8"],
+                    help="int8 KV cache (halves the cache's bytes)")
+    ap.add_argument("--spec_window", type=int, default=0,
+                    help="prompt-lookup speculative decoding window (>= 2 enables; the same "
+                         "tokens as plain greedy decoding)")
+    ap.add_argument("--quantize", default=None, choices=["int8", "int8-all"],
+                    help="int8: weight-only int8 LM; int8-all: also int8 towers and s8 x s8 "
+                         "prefill")
+    ap.add_argument("--profile", default=None, metavar="LOGDIR",
+                    help="write a torch.profiler trace of the answer into LOGDIR and print "
+                         "its stage times")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -56,15 +59,12 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     from ..builder import load_pretrained_model
     from ..eval.runner import HFTokenizerAdapter, TDCPredictor
     from ..media.io import decode_video, load_audio
-
-    for opt, item in NOT_PORTED.items():
-        if getattr(args, opt):
-            raise NotImplementedError(f"--{opt} is not ported yet, see ROADMAP.md {item}")
+    from ..utils.profiling import trace
 
     t_load = time.time()
     hf_tok, model, _, _ = load_pretrained_model(
         args.model_path, args.model_base, args.model_name, dtype=torch.bfloat16,
-        load_tokenizer=tokenizer is None, device=args.device)
+        load_tokenizer=tokenizer is None, quantize=args.quantize, device=args.device)
     tokenizer = tokenizer if tokenizer is not None else HFTokenizerAdapter(hf_tok)
     bert_tok = None
     if args.bert_tokenizer:
@@ -91,12 +91,19 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
 
     predictor = TDCPredictor(model.cfg, model.params, tokenizer, bert_tokenizer=bert_tok,
                              max_new_tokens=args.max_new_tokens, max_eval_frames=args.max_frames,
-                             device=args.device)
+                             device=args.device, act_quant=args.quantize == "int8-all",
+                             kv_quant=args.kv_quant, spec_window=args.spec_window)
     t1 = time.time()
-    answer = predictor.answer(frames, args.question, wav=wav, frame_seconds=ts,
-                              max_new_tokens=args.max_new_tokens, video_uid=args.video)
+    with trace(args.profile) if args.profile else contextlib.nullcontext():
+        answer = predictor.answer(frames, args.question, wav=wav, frame_seconds=ts,
+                                  max_new_tokens=args.max_new_tokens, video_uid=args.video)
     answer_s = time.time() - t1
     print(f"\n{answer}\n\n[{answer_s:.1f}s inference]")
+    if args.profile:
+        s = predictor.stats
+        print(f"[profile] encode {s.encode_s:.2f}s audio {s.audio_s:.2f}s compress+prefill "
+              f"{s.prefill_s:.2f}s decode {s.decode_s:.2f}s ({s.decode_steps} steps) "
+              f"trace -> {args.profile}")
     return {"answer": answer, "ids": list(predictor.stats.last_ids), "n_frames": len(frames),
             "audio_samples": None if wav is None else len(wav),
             "load_s": load_s, "decode_s": decode_s, "answer_s": answer_s}

@@ -7,8 +7,10 @@ on the device.  The tokenizer is any object with `encode(text) -> List[int]`
 and `decode(ids) -> str`; HFTokenizerAdapter wraps a transformers
 tokenizer.  One video's features are cached under the caller's video_uid.
 An audio-visual model takes the clip's waveform (`wav`, 16 kHz mono) and
-the second of each frame (`frame_seconds`).  No batching or speculative
-decoding in this slice.
+the second of each frame (`frame_seconds`).  Serving options as in JAX:
+an int8 KV cache (`kv_quant`), s8 x s8 prefill (`act_quant`, with int8
+weights) and prompt-lookup speculative decoding (`spec_window`).  No
+batching.
 """
 
 from __future__ import annotations
@@ -89,7 +91,8 @@ def request_shape(cfg: TDCConfig, ids, n_frames: int, text_bucket: int) -> Dict[
 
 def prefill_shape(cfg: TDCConfig, tok, question: str, n_frames: int, max_new_tokens: int,
                   text_bucket: int = 512, max_eval_frames: int = 1000) -> Tuple[int, int]:
-    """(prefill rows T, KV-cache capacity S) of one `answer` call."""
+    """(prefill rows T, KV-cache capacity S) of one `answer` call without
+    speculative decoding (which adds spec_window - 1 slots)."""
     ids, _, _ = build_text(cfg, tok, question)
     cap = min(budget.max_num_frames(cfg, ids, train=False), max_eval_frames)
     shp = request_shape(cfg, ids, min(n_frames, cap), text_bucket)
@@ -145,6 +148,10 @@ class TDCPredictor:
         attn_impl: str = "flash",
         device_preprocess: bool = False,
         device=None,
+        kv_quant: Optional[str] = None,  # "int8": int8 KV cache
+        act_quant: bool = False,  # s8 x s8 prefill (with int8 weights)
+        spec_window: int = 0,  # >= 2: prompt-lookup speculative decode
+        spec_ngram: int = 3,
     ):
         self.cfg = cfg
         self.params = params
@@ -158,6 +165,10 @@ class TDCPredictor:
         # True: pad, resize and normalise on the device (within tolerance)
         self.device_preprocess = device_preprocess
         self.device = resolve_device(device)
+        self.kv_quant = kv_quant
+        self.act_quant = act_quant
+        self.spec_window = spec_window
+        self.spec_ngram = spec_ngram
         self._feat_cache: Tuple[Any, Any] = (None, None)  # one video's features
         self.stats = PredictorStats()
 
@@ -270,7 +281,9 @@ class TDCPredictor:
                            video_uid)
         timings: Dict[str, float] = {}
         toks = generate_encoded(self.cfg, self.params, **req["gen"], attn_impl=self.attn_impl,
-                                timings=timings)
+                                timings=timings, kv_quant=self.kv_quant,
+                                act_quant=self.act_quant, spec_window=self.spec_window,
+                                spec_ngram=self.spec_ngram)
         ids = _trim_generated(toks[0].tolist(), self.cfg.lm)
         st = self.stats
         st.samples += 1

@@ -1,16 +1,22 @@
 """ViT encoder serving the SigLIP and DINOv2 towers (port of
-tdc_video_tpu/models/vit.py, float path).
+tdc_video_tpu/models/vit.py).
 
 The patch conv is one matmul over flattened patches; frames are the batch
 axis; layers run in a Python loop.  Each layer's attention goes through
 models/attention.py, which on the card launches K2 (DINOv2, D=64) or K3
 (SigLIP, D=72) on the packed [B, N, H*D] projections in place.
+
+int8 towers (models/quant.quantize_vit_int8): the projections run s8 x s8
+with activations quantized per token, or by the static per-layer scales a
+calibrated tree carries (layers["act_scale"]); attention, LayerNorm and
+LayerScale stay float, so K2 and K3 still run.  calibrate=True (float
+weights) also returns each layer's activation amax per site.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -18,7 +24,16 @@ import torch
 from ..config import ViTConfig
 from ..device import resolve_device
 from .attention import attention
-from .layers import gelu_tanh, init_layer_norm, init_linear, layer_norm, linear, normal_init
+from .layers import (
+    gelu_tanh,
+    init_layer_norm,
+    init_linear,
+    int8_dot,
+    int8_qact,
+    layer_norm,
+    linear,
+    normal_init,
+)
 
 Params = Any
 
@@ -103,26 +118,54 @@ def bilinear_resize_tokens(tokens: torch.Tensor, src_side: int, dst_side: int) -
     return out.reshape(B, dst_side * dst_side, C).to(tokens.dtype)
 
 
-def _layer_forward(cfg: ViTConfig, p: Params, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+def _layer_forward(cfg: ViTConfig, p: Params, x: torch.Tensor, attn_impl: str,
+                   stats: Optional[Dict[str, list]] = None) -> torch.Tensor:
+    """One layer; `stats`, when given, gets this layer's activation amax at
+    each quantization site appended (calibration)."""
     B, N, D = x.shape
     nh = cfg.num_heads
     hd = D // nh
+    int8 = "w_q" in p["q_proj"]
+    asc = p.get("act_scale") if int8 else None
+
+    def quantize(xx, site):
+        return int8_qact(xx, None if asc is None else asc[site])
+
+    def qlin(pp, xx, site):
+        if "w_q" in pp:
+            return int8_dot(*quantize(xx, site), pp, x.dtype)
+        return linear(pp, xx)
+
+    def record(site, t):
+        if stats is not None:
+            stats[site].append(t.float().abs().amax())
+
     h = layer_norm(p["norm1"], x, cfg.layer_norm_eps)
-    q = linear(p["q_proj"], h).reshape(B, N, nh, hd)
-    k = linear(p["k_proj"], h).reshape(B, N, nh, hd)
-    v = linear(p["v_proj"], h).reshape(B, N, nh, hd)
+    record("qkv", h)
+    if int8:  # one quantization of the LN output feeds q, k and v
+        hq, hs = quantize(h, "qkv")
+        q, k, v = (int8_dot(hq, hs, p[n], x.dtype) for n in ("q_proj", "k_proj", "v_proj"))
+    else:
+        q, k, v = (linear(p[n], h) for n in ("q_proj", "k_proj", "v_proj"))
+    q, k, v = (t.reshape(B, N, nh, hd) for t in (q, k, v))
     a = attention(q, k, v, impl=attn_impl).reshape(B, N, D)
-    a = linear(p["o_proj"], a)
+    record("attn", a)
+    a = qlin(p["o_proj"], a, "attn")
     if cfg.layerscale:
         a = a * p["ls1"].to(a.dtype)
     x = x + a
 
     h = layer_norm(p["norm2"], x, cfg.layer_norm_eps)
+    record("mlp", h)
     if cfg.use_swiglu:
-        g, u = linear(p["mlp"]["gate_up"], h).chunk(2, dim=-1)
-        m = linear(p["mlp"]["down"], torch.nn.functional.silu(g) * u)
+        # one gate_up product split in two: the same values as JAX's two
+        # sliced int8 dots (per-column scales, exact s32 sums)
+        g, u = qlin(p["mlp"]["gate_up"], h, "mlp").chunk(2, dim=-1)
+        inner = torch.nn.functional.silu(g) * u
     else:
-        m = linear(p["mlp"]["fc2"], gelu_tanh(linear(p["mlp"]["fc1"], h)))
+        inner = gelu_tanh(qlin(p["mlp"]["fc1"], h, "mlp"))
+    record("down", inner)
+    m = qlin(p["mlp"]["down"] if cfg.use_swiglu else p["mlp"]["fc2"], inner, "down")
     if cfg.layerscale:
         m = m * p["ls2"].to(m.dtype)
     return x + m
@@ -135,25 +178,32 @@ def vit_forward(
     interpolate: bool = True,
     attn_impl: str = "xla",
     dtype=torch.float32,
-) -> torch.Tensor:
-    """Returns patch features [B, N (or interp_tokens), C]; CLS dropped."""
+    calibrate: bool = False,
+):
+    """Returns patch features [B, N (or interp_tokens), C]; CLS dropped.
+    calibrate=True (float weights) returns (features, stats) with stats
+    {"qkv", "attn", "mlp", "down"}: [L] per-layer activation amaxes, the
+    input of models/quant.calibrate_vit_act_scales."""
     from .lm import layer_params
 
     x = patchify(pixels.to(dtype), cfg.patch_size)
-    x = linear(params["patch_embed"], x)
+    x = linear(params["patch_embed"], x, act_quant=True)
     B = x.shape[0]
     if cfg.use_cls_token:
         cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.hidden_size)
         x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)[None]
+    stats = {k: [] for k in ("qkv", "attn", "mlp", "down")} if calibrate else None
     for i in range(cfg.num_layers):
-        x = _layer_forward(cfg, layer_params(params["layers"], i), x, attn_impl)
+        x = _layer_forward(cfg, layer_params(params["layers"], i), x, attn_impl, stats)
     # both HF towers layer-norm the sequence output
     x = layer_norm(params["final_norm"], x, cfg.layer_norm_eps)
     if cfg.use_cls_token:
         x = x[:, 1:]
     if interpolate:
         x = bilinear_resize_tokens(x, cfg.grid_size, int(cfg.interp_tokens**0.5))
+    if calibrate:
+        return x, {k: torch.stack(v) for k, v in stats.items()}
     return x
 
 

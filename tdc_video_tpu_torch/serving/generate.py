@@ -1,9 +1,13 @@
-"""Greedy generation over pre-encoded frames (port of the plain-decode path
-of tdc_video_tpu/serving/generate.py).
+"""Greedy generation over pre-encoded frames (port of the greedy paths of
+tdc_video_tpu/serving/generate.py): the plain decode loop, or prompt-lookup
+speculative decoding (serving/speculative.py), over a bf16 or int8 KV
+cache, with weight-only or act-quant int8 prefill.
 
 JAX runs decode as one lax.while_loop on the device; here it is a Python
-loop whose EOS test reads one bool per step back to the host: a sync per
-token, and a known cost (CUDA graphs of the step would remove it).
+loop.  Its stop test (every row done) is read back to the host only every
+DONE_CHECK_EVERY steps, not every token: rows already done emit pad, so
+the tokens are the same, and the loop runs at most DONE_CHECK_EVERY - 1
+steps past the last EOS.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ from ..model import prepare_multimodal_from_features
 from ..models import lm as lm_mod
 
 Params = Any
+
+# decode steps between two host reads of the stop condition
+DONE_CHECK_EVERY = 8
 
 
 def greedy_sample(logits: torch.Tensor, _key=None) -> torch.Tensor:
@@ -39,8 +46,9 @@ def decode_loop(
     attn_impl: str = "xla",
 ) -> Tuple[torch.Tensor, int]:
     """Greedy decode for up to max_new_tokens; stops early once every row has
-    emitted an EOS.  Returns (tokens [B, max_new_tokens] with positions after
-    EOS set to pad_token_id, decode steps run)."""
+    emitted an EOS, as seen at the next of the host checks (every
+    DONE_CHECK_EVERY steps).  Returns (tokens [B, max_new_tokens] with
+    positions after EOS set to pad_token_id, decode steps run)."""
     B = first_token.shape[0]
     dev = first_token.device
     eos = torch.tensor(cfg.lm.eos_token_ids, dtype=torch.int32, device=dev)
@@ -50,7 +58,9 @@ def decode_loop(
     done = (first_token[:, None] == eos[None]).any(-1)
     tok = first_token
     i = 1
-    while i < max_new_tokens and not bool(done.all()):
+    while i < max_new_tokens:
+        if (i - 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
         embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], tok[:, None], cfg.dtype)
         logits, cache = lm_mod.decode_step(cfg.lm, params["lm"], embeds, cache,
                                            attn_impl=attn_impl, dtype=cfg.dtype)
@@ -60,6 +70,19 @@ def decode_loop(
         tok = nxt
         i += 1
     return out, i - 1
+
+
+def _spec_or_plain_decode(cfg, params, cache, first, input_ids, prompt_len, max_new_tokens,
+                          attn_impl, spec_window, spec_ngram):
+    """Prompt-lookup speculative decode when spec_window >= 2 (exact for
+    greedy decoding, the port's only mode), else the plain loop.  Returns
+    (tokens, steps)."""
+    if spec_window and spec_window >= 2:
+        from .speculative import pld_decode_loop
+
+        return pld_decode_loop(cfg, params, cache, first, input_ids, prompt_len, max_new_tokens,
+                               window=spec_window, ngram=spec_ngram, attn_impl=attn_impl)
+    return decode_loop(cfg, params, cache, first, max_new_tokens, attn_impl=attn_impl)
 
 
 def prefill_encoded(
@@ -80,9 +103,14 @@ def prefill_encoded(
     max_len: int = 4096,
     max_visual_len: int = 2048,
     attn_impl: str = "xla",
+    kv_quant: Optional[str] = None,
+    act_quant: bool = False,
+    spec_window: int = 0,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Compression + splice + LM prefill into a cache of capacity
-    max_len + max_new_tokens.  Returns (last-token logits [B, V], cache)."""
+    """Compression + splice + LM prefill into a cache (int8 with
+    kv_quant="int8") of capacity max_len + max_new_tokens, plus
+    spec_window - 1 slots of headroom for speculative verify windows.
+    Returns (last-token logits [B, V], cache)."""
     mm = prepare_multimodal_from_features(
         cfg, params, input_ids, image_pos, frame_feats, dino_feats, frame_mask,
         qformer_text_ids, qformer_text_mask, audio_tokens=audio_tokens, text_len=text_len,
@@ -90,10 +118,11 @@ def prefill_encoded(
         max_visual_len=max_visual_len,
     )
     B = input_ids.shape[0]
-    cache = lm_mod.init_kv_cache(cfg.lm, B, max_len + max_new_tokens, dtype=cfg.dtype,
-                                 device=input_ids.device)
+    capacity = max_len + max_new_tokens + max(spec_window - 1, 0)
+    cache = lm_mod.init_kv_cache(cfg.lm, B, capacity, dtype=cfg.dtype, device=input_ids.device,
+                                 quant=kv_quant)
     return lm_mod.prefill(cfg.lm, params["lm"], mm["embeds"], mm["attn_mask"], cache,
-                          attn_impl=attn_impl, dtype=cfg.dtype)
+                          attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant)
 
 
 def generate_encoded(
@@ -115,23 +144,34 @@ def generate_encoded(
     max_visual_len: int = 2048,
     attn_impl: str = "xla",
     timings: Optional[Dict[str, float]] = None,
+    kv_quant: Optional[str] = None,  # "int8": int8 KV cache
+    act_quant: bool = False,  # s8 x s8 prefill projections (int8 weights)
+    spec_window: int = 0,  # >= 2: prompt-lookup speculative decode
+    spec_ngram: int = 3,
 ) -> torch.Tensor:
     """Greedy generation over pre-encoded frames; returns [B, max_new_tokens].
     `timings`, when given, receives prefill_s (compression + splice +
-    prefill), decode_s and decode_steps, each stage ended by a device sync."""
+    prefill), decode_s and decode_steps (verify steps under speculation),
+    each stage ended by a device sync."""
+    B, dev = input_ids.shape[0], input_ids.device
     t0 = time.perf_counter()
     logits, cache = prefill_encoded(
         cfg, params, input_ids, image_pos, frame_feats, dino_feats, frame_mask,
         qformer_text_ids, qformer_text_mask, audio_tokens=audio_tokens, text_len=text_len,
         token_valid=token_valid, query_pool=query_pool, max_new_tokens=max_new_tokens,
         max_len=max_len,
-        max_visual_len=max_visual_len, attn_impl=attn_impl,
+        max_visual_len=max_visual_len, attn_impl=attn_impl, kv_quant=kv_quant,
+        act_quant=act_quant, spec_window=spec_window,
     )
     first = _sample_first(logits)
     if timings is not None:
         synchronize(logits.device)
         t1 = time.perf_counter()
-    out, steps = decode_loop(cfg, params, cache, first, max_new_tokens, attn_impl=attn_impl)
+    # drafts come from the text ids (visual tokens have no token identity)
+    prompt_len = (text_len if text_len is not None
+                  else torch.full((B,), input_ids.shape[1], dtype=torch.int32, device=dev))
+    out, steps = _spec_or_plain_decode(cfg, params, cache, first, input_ids, prompt_len,
+                                       max_new_tokens, attn_impl, spec_window, spec_ngram)
     if timings is not None:
         synchronize(out.device)
         timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1, decode_steps=steps)

@@ -224,8 +224,18 @@ def test_audio_export_and_round_trip(tmp_path):
 
 
 def test_quantize_raises(ckpt):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tbuilder.load_pretrained_model(ckpt, load_tokenizer=False, quantize="int8", device="cpu")
+    """quantize="int8" loads the LM as JAX's loader quantizes it (w_q
+    bitwise, int8), the towers float; an unknown mode raises ValueError."""
+    _, jm, _, _ = jbuilder.load_pretrained_model(ckpt, load_tokenizer=False, quantize="int8")
+    _, tm, _, _ = tbuilder.load_pretrained_model(ckpt, load_tokenizer=False, quantize="int8",
+                                                 device="cpu")
+    assert tm.params["lm"]["layers"]["q_proj"]["w_q"].dtype == torch.int8
+    assert "w" in tm.params["siglip"]["layers"]["q_proj"]
+    for name in ("q_proj", "o_proj"):
+        np.testing.assert_array_equal(tm.params["lm"]["layers"][name]["w_q"].numpy(),
+                                      np.asarray(jm.params["lm"]["layers"][name]["w_q"]))
+    with pytest.raises(ValueError, match="int4"):
+        tbuilder.load_pretrained_model(ckpt, load_tokenizer=False, quantize="int4", device="cpu")
 
 
 def test_merge_lora_matches_jax():

@@ -347,3 +347,102 @@ def test_attention_flash_gradients_on_card(cuda, causal, shape):
             assert tfa.launches["flash_dq_kernel"] == 1 and tfa.launches["flash_dkv_kernel"] == 1
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [((1, 1, 3584), (3584, 8192)), ((2, 5, 8, 64), (2, 5, 64, 40)),
+                                   ((2, 4, 3, 7, 128), (2, 4, 1, 128, 33))],
+                         ids=["head", "batched", "gqa_fold"])
+def test_dot_f32_on_card(cuda, shape):
+    """layers.dot_f32 on CUDA runs the bf16 operands' GEMM with f32
+    accumulation and output: against an f64 product of the same bf16
+    values within f32 summation error (1e-5 of sum |a||b|), and gradients
+    against the f64 ones within bf16 rounding (1e-2 of their max)."""
+    from tdc_video_tpu_torch.models.layers import dot_f32
+
+    g = torch.Generator().manual_seed(5)
+    a, b = (torch.randn(s, generator=g).to(torch.bfloat16) for s in shape)
+    ad, bd = (x.cuda().requires_grad_() for x in (a, b))
+    y = dot_f32(ad, bd)
+    assert y.dtype == torch.float32 and y.device.type == "cuda"
+    ref = a.double() @ b.double()
+    scale = (a.double().abs() @ b.double().abs())
+    assert float(((y.detach().cpu().double() - ref).abs() / scale.clamp_min(1e-30)).max()) <= 1e-5
+    w = torch.randn(ref.shape, generator=g)
+    (y * w.cuda()).sum().backward()
+    a64, b64 = (x.double().requires_grad_() for x in (a, b))
+    ((a64 @ b64) * w.double()).sum().backward()
+    for got, want in ((ad.grad, a64.grad), (bd.grad, b64.grad)):
+        assert got.dtype == torch.bfloat16
+        want = want.sum_to_size(got.shape) if want.shape != got.shape else want
+        assert float((got.cpu().double() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_dot_f32_makes_no_f32_copy(cuda):
+    """The head product of a 1-token decode step allocates its f32 output
+    and no f32 copy of the [3584, 152064] bf16 weight (2.18 GB)."""
+    from tdc_video_tpu_torch.models.layers import dot_f32
+
+    h = torch.randn((1, 1, 3584), device="cuda").to(torch.bfloat16)
+    w = torch.randn((3584, 152064), device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = dot_f32(h, w)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert y.dtype == torch.float32
+    assert extra < 64 * 2**20, extra  # output 0.6 MB + workspace; an f32 copy is 2.18 GB
+
+
+def test_dot_f32_master_gradient_in_f32(cuda):
+    """A weight cast once for several products (lm.lm_loss's chunks) gets
+    its gradient, accumulated over the products, in its own f32 dtype."""
+    from tdc_video_tpu_torch.models.layers import dot_f32
+
+    g = torch.Generator().manual_seed(6)
+    master = torch.randn((64, 96), generator=g).cuda().requires_grad_()
+    w = master.to(torch.bfloat16)
+    hs = [torch.randn((5, 64), generator=g).cuda().to(torch.bfloat16) for _ in range(3)]
+    sum(dot_f32(h, w, master).sum() for h in hs).backward()
+    want = sum(h.double().sum(0)[:, None].expand(64, 96) for h in hs)
+    assert master.grad.dtype == torch.float32
+    assert float((master.grad.double() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_int8_dot_on_card_exact(cuda):
+    """layers.int8_dot on CUDA (torch._int_mm with rows, K and N padded as it
+    needs: 5 rows, K = 588 as the towers' patch embedding, N = 36) gives the
+    CPU's exact s32 product, in both weight layouts."""
+    from tdc_video_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randint(-127, 128, (5, 588), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (588, 36), generator=g, dtype=torch.int8)
+    ref = layers._int_mm(x, w)
+    for wd in (w.cuda(), w.t().contiguous().t().cuda()):
+        out = layers._int_mm(x.cuda(), wd)
+        assert torch.equal(out.cpu(), ref)
+    p = {"w_q": w, "w_scale": torch.rand(36, generator=g)}
+    xs = torch.rand((5, 1), generator=g)
+    pc = {k: v.cuda() for k, v in p.items()}
+    out = layers.int8_dot(x.cuda(), xs.cuda(), pc, torch.float32)
+    assert torch.allclose(out.cpu(), layers.int8_dot(x, xs, p, torch.float32), rtol=1e-6, atol=0)
+
+
+def test_sdpa_int8kv_on_card(cuda):
+    """Attention over an int8 KV cache on the card against the CPU's, f32 and
+    bf16 queries (bf16: 3e-2, as the kernels' bf16 tolerance)."""
+    from tdc_video_tpu_torch.models.layers import sdpa_int8kv
+
+    g = torch.Generator().manual_seed(8)
+    B, T, S, Hq, Hkv, D = 2, 3, 40, 8, 2, 64
+    q = torch.randn((B, T, Hq, D), generator=g)
+    kq, vq = (torch.randint(-127, 128, (B, S, Hkv, D), generator=g, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand((B, S, Hkv), generator=g) / 100 for _ in range(2))
+    mask = (torch.arange(S)[None] < torch.tensor([[S], [S - 7]]))[:, None, None, :]
+    ref = sdpa_int8kv(q, kq, ks, vq, vs, mask)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        out = sdpa_int8kv(*(t.cuda() for t in (q.to(dtype), kq, ks, vq, vs, mask)))
+        err = float((out.float().cpu() - ref).abs().max())
+        assert err <= tol * max(1.0, float(ref.abs().max()))

@@ -128,3 +128,42 @@ def test_predictor_answer_token_identical_host_path(params):
     """The same on the default host path (PIL's bicubic chain in JAX, its
     numpy copy in the port)."""
     _answers_token_identical(params, device_preprocess=False)
+
+
+@pytest.mark.parametrize("eos_at", [0, 3, 8])
+def test_decode_loop_checks_done_every_k_steps(params, eos_at, monkeypatch):
+    """decode_loop reads its stop condition back to the host once every
+    DONE_CHECK_EVERY steps: the tokens are JAX's (pad after the EOS), the
+    steps run exceed the per-token loop's count by less than
+    DONE_CHECK_EVERY, and the host reads `done` no more often."""
+    from tdc_video_tpu.serving.generate import generate_text_only
+    from tdc_video_tpu_torch.models import lm as tlm
+    from tdc_video_tpu_torch.serving import generate as tgen
+
+    jp, tp = params
+    k = tgen.DONE_CHECK_EVERY
+    ids = np.random.default_rng(9).integers(2, 100, (1, 10)).astype(np.int32)
+    mask = np.ones(ids.shape, bool)
+
+    def run(cfg, new=12):
+        emb = tlm.embed_tokens(cfg.lm, tp["lm"], t(ids), cfg.dtype)
+        cache = tlm.init_kv_cache(cfg.lm, 1, 10 + new, dtype=cfg.dtype, device="cpu")
+        logits, cache = tlm.prefill(cfg.lm, tp["lm"], emb, t(mask), cache, dtype=cfg.dtype)
+        return tgen.decode_loop(cfg, tp, cache, logits.argmax(-1).to(torch.int32), new)
+
+    probe, _ = run(tc.tdc_tiny())
+    eos = int(probe[0, eos_at])
+    true_steps = int(np.where(probe[0].numpy() == eos)[0][0])  # the per-token loop's count
+    tcfg = dataclasses.replace(tc.tdc_tiny(),
+                               lm=dataclasses.replace(tc.LM_TINY, eos_token_ids=(eos,)))
+    jcfg = dataclasses.replace(jc.tdc_tiny(),
+                               lm=dataclasses.replace(jc.LM_TINY, eos_token_ids=(eos,)))
+    reads = []
+    real_bool = torch.Tensor.__bool__
+    monkeypatch.setattr(torch.Tensor, "__bool__", lambda x: reads.append(1) or real_bool(x))
+    out, steps = run(tcfg)
+    monkeypatch.undo()
+    ref = generate_text_only(jcfg, jp, jnp.asarray(ids), jnp.asarray(mask), max_new_tokens=12)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert true_steps <= steps < true_steps + k
+    assert len(reads) <= steps // k + 1

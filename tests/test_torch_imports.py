@@ -31,6 +31,10 @@ def test_port_and_smoke_script_import_no_jax():
                       if m.split(".")[0] in ("PIL", "safetensors", "transformers"))
         assert not libs, libs
         assert len(names) >= 20, names
+        # the serving options' modules (quantization, speculative decoding,
+        # profiling) among them
+        for m in ("models.quant", "serving.speculative", "utils.profiling"):
+            assert "tdc_video_tpu_torch." + m in names, m
         print(len(names))
         """
     )

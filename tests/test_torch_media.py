@@ -249,8 +249,44 @@ def test_demo_audio_answers_from_checkpoint(audio_demo_ckpt, mp4_path, wav_path,
 @pytest.mark.parametrize("flag", [["--quantize", "int8"], ["--kv_quant", "int8"],
                                   ["--spec_window", "4"], ["--profile", "logs"]],
                          ids=lambda f: f[0])
-def test_demo_options_not_ported_raise(demo_ckpt, mp4_path, flag):
-    from tdc_video_tpu_torch.cli import demo
+def test_demo_options_not_ported_raise(demo_ckpt, mp4_path, flag, monkeypatch, tmp_path):
+    """Each serving option of the demo runs (none raises): cli.demo.run with
+    --quantize int8, --kv_quant int8, --spec_window 4 or --profile LOGDIR
+    answers as the JAX package's demo chain with the same option (f32
+    compute and compressor, as test_demo_answers_from_checkpoint; tolerance
+    0 on the ids); --profile writes its trace into LOGDIR."""
+    import jax.numpy as jnp
+    import torch
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        demo.run(_demo_args(demo_ckpt, mp4_path, *flag))
+    from tdc_video_tpu import builder as jbuilder
+    from tdc_video_tpu.eval.runner import TDCPredictor as JaxPredictor
+    from tdc_video_tpu_torch import builder as tbuilder
+    from tdc_video_tpu_torch.cli import demo
+    from test_torch_e2e import JaxStubTokenizer
+    from torch_parity import StubTokenizer
+
+    real_load = tbuilder.load_pretrained_model
+
+    def load_f32(*a, **k):
+        tok, m, pre, ctx = real_load(*a, **dict(k, dtype=torch.float32))
+        cfg = dataclasses.replace(m.cfg, compress_dtype=torch.float32)
+        return tok, tbuilder.TDCModel(cfg, m.params), pre, ctx
+
+    monkeypatch.setattr(tbuilder, "load_pretrained_model", load_f32)
+    if flag[0] == "--profile":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    args = _demo_args(demo_ckpt, mp4_path, *flag)
+    out = demo.run(args, tokenizer=StubTokenizer())
+    assert 0 < len(out["ids"]) <= 6
+    if args.profile:
+        assert os.path.getsize(os.path.join(args.profile, "trace.json")) > 0
+    _, jm, _, _ = jbuilder.load_pretrained_model(demo_ckpt, load_tokenizer=False,
+                                                 dtype=jnp.float32, quantize=args.quantize)
+    jcfg = dataclasses.replace(jm.cfg, compress_dtype=jnp.float32)
+    frames, ts = jio.decode_video(mp4_path, fps=jcfg.video_fps, max_frames=args.max_frames)
+    pred = JaxPredictor(jcfg, jm.params, JaxStubTokenizer(), max_new_tokens=args.max_new_tokens,
+                        max_eval_frames=args.max_frames, act_quant=args.quantize == "int8-all",
+                        kv_quant=args.kv_quant, spec_window=args.spec_window)
+    ref = pred.answer(frames, args.question, frame_seconds=ts,
+                      max_new_tokens=args.max_new_tokens, video_uid=mp4_path)
+    assert out["answer"] == ref
