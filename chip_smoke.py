@@ -107,6 +107,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (`launches_int8`, `launches_int8_all`, `launches_kv_int8`,
    `launches_spec`).
 
+11. stage 3 (audio-visual LoRA, the stage3_audio_lora preset: r 128, alpha
+   256, accumulation 2, loss_chunk 512, 8192 rows), run right after phase 9
+   on phase 9's TDC-Qwen2-7B(audio) bf16 tensors as the frozen base (a cut:
+   the preset keeps f32 weights; linear casts each weight to bf16 at use, so
+   the products do not change) with f32 copies of the trainable extras
+   (SVA, compressor, image_newline, audio_proj) and f32 adapters; one
+   synthetic sample of 64 frames with its 64 s soundtrack.  (a) LoRA: 2
+   optimizer steps (4 micro-steps) through Trainer.train_step with the
+   launch counters read per micro-step (K1 56, K5 28, K6 28, K2 40, K3 27,
+   K4 0), a fifth micro-step under torch.profiler, non-pad tokens/s and
+   peak memory; the LM base bitwise unchanged; (b) one loss-and-gradient
+   pass with "flash" and one with "xla" on the LoRA view: losses within
+   phase 6's 0.05, the cosine of all A/B gradients and of each layer's
+   q/k/v/o adapters alone at least 0.99; (c) K1, K5 and K6 at this path's
+   shape ([1, 8192, 28/4, 128]) held row by row to their plain versions at
+   phase 2's bound and timed beside SDPA or its backward; (d) QLoRA, the
+   same with quantize_frozen="int8" (the LM's linears and head and both
+   towers int8, the bf16 base freed): 2 optimizer steps, peak memory, and
+   export_merged against dequantize + merge recomputed on the host; (e) on
+   the model at full width with phase 8's depth cut: a QLoRA Trainer's save
+   restored by a new Trainer bitwise in every dtype, its merged export
+   written with save_checkpoint_dir and loaded with load_pretrained_model,
+   answering token-identically to the merged params in memory, and
+   train.run.main --stage 3 --max_steps 2 --report_to jsonl on a synthetic
+   data.json (.npy frames; a wav a row where FFmpeg's libraries exist),
+   ending with a final/ that loads; whether torch.utils.tensorboard imports.
+   Every kernel's entry gets its launches on legs (a) and (d)
+   (`launches_lora`, `launches_qlora`); K1, K5 and K6 get entries at the
+   stage-3 shape.
+
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
 """
@@ -460,6 +490,65 @@ def _compare_rows(name, out, ref, rtol):
     return max_abs
 
 
+def _bwd_rows(rnd, label, dims, causal, packed, dtype, timed):
+    """K5 and K6 against their plain versions row by row at dims = (B, T,
+    Hq, Hkv, D), on inputs from the kernel forward (K1, or K4 for packed
+    tower projections); when `timed`, each timed beside its plain version
+    and the SDPA backward (which computes dQ, dK and dV at once), the pair
+    too.  Returns the two kernels' entries of the kernels line (none when
+    not timed)."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    B, T, Hq, Hkv, D = dims
+    if packed:
+        q, k, v = (rnd(B, T, Hq * D, dtype=dtype).view(B, T, Hq, D) for _ in range(3))
+    else:
+        q, k, v = rnd(B, T, Hq, D, dtype=dtype), rnd(B, T, Hkv, D, dtype=dtype), \
+            rnd(B, T, Hkv, D, dtype=dtype)
+    do = rnd(B, T, Hq, D, dtype=dtype)
+    o, lse = fa._gqa_fwd(q, k, v, 1.0 / math.sqrt(D), causal)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
+    args = q, k, v, do, lse, delta
+    scale = 1.0 / math.sqrt(D)
+    rtol = ROW_RTOL if dtype == torch.bfloat16 else F32_ATOL
+    dq = fa.flash_dq_kernel(*args, scale, causal)
+    dk, dv = fa.flash_dkv_kernel(*args, scale, causal)
+    dq_r = fa.flash_dq_plain(*args, scale, causal)
+    dk_r, dv_r = fa.flash_dkv_plain(*args, scale, causal)
+    torch.cuda.synchronize()
+    err = {"flash_dq_kernel": _compare_rows(f"flash_dq_kernel dQ {label}", dq, dq_r, rtol),
+           "flash_dkv_kernel": max(_compare_rows(f"flash_dkv_kernel dK {label}", dk, dk_r, rtol),
+                                   _compare_rows(f"flash_dkv_kernel dV {label}", dv, dv_r, rtol))}
+    del dq, dk, dv, dq_r, dk_r, dv_r
+    if not timed:
+        return []
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
+                                                  enable_gqa=Hq != Hkv)
+    fwd_ms = time_ms(sdpa)
+    fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do.transpose(1, 2)))
+    lib_ms = fwd_bwd_ms - fwd_ms
+    pairs = T * (T + 1) // 2 if causal else T * T
+    io = 2.0 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) + 8.0 * B * Hq * T  # q, dO, k, v, lse, delta
+    pair = []
+    for name, mult, out_bytes in (("flash_dq_kernel", 6, 2.0 * B * T * Hq * D),
+                                  ("flash_dkv_kernel", 8, 4.0 * B * T * Hkv * D)):
+        fn = getattr(fa, name)
+        ms = time_ms(lambda: fn(*args, scale, causal))
+        plain = getattr(fa, name.replace("_kernel", "_plain"))
+        plain_ms = time_ms(lambda: plain(*args, scale, causal), reps=2, rounds=3, warmup=1)
+        pair.append(_row(name, f"{label} (yardstick: SDPA backward, dQ+dK+dV)",
+                         "tdc_video_tpu/ops/flash_attention.py:" + ("433" if name == "flash_dq_kernel" else "489"),
+                         err[name], ms, plain_ms, lib_ms, mult * pairs * D * B * Hq, io + out_bytes))
+    pair_ms = pair[0]["ms"] + pair[1]["ms"]
+    log(f"[2] K5+K6 {label}: {pair_ms:.4f} ms against the SDPA backward's {lib_ms:.4f} ms "
+        f"({pair_ms / lib_ms:.2f}x); bound {pair[0]['bound_ms'] + pair[1]['bound_ms']:.4f} ms "
+        f"({100 * (pair[0]['bound_ms'] + pair[1]['bound_ms']) / pair_ms:.1f}% of it)")
+    for r in pair:
+        r.update(pair_ms=pair_ms, pair_vs_library=pair_ms / lib_ms)
+    return pair
+
+
 def phase_train_kernels():
     """K1 at the stage-2 LM shape (T = S = 8192, causal, GQA 24/8, D = 128),
     K4, K5 and K6 against their plain versions and timed.  K4 at both
@@ -479,18 +568,6 @@ def phase_train_kernels():
     gc.collect()
     torch.cuda.empty_cache()
 
-    def bwd_inputs(B, T, Hq, Hkv, D, causal, dtype, packed):
-        """q, k, v, dO, and lse, delta from the kernel forward (K1 or K4)."""
-        if packed:
-            q, k, v = (rnd(B, T, Hq * D, dtype=dtype).view(B, T, Hq, D) for _ in range(3))
-        else:
-            q, k, v = rnd(B, T, Hq, D, dtype=dtype), rnd(B, T, Hkv, D, dtype=dtype), \
-                rnd(B, T, Hkv, D, dtype=dtype)
-        do = rnd(B, T, Hq, D, dtype=dtype)
-        o, lse = fa._gqa_fwd(q, k, v, 1.0 / math.sqrt(D), causal)
-        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
-        return q, k, v, do, lse, delta
-
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # label, (B, T, Hq, Hkv, D), causal, packed, dtype, timed
         (f"LM T={LM_T_CHECK} causal GQA 24/8", (1, LM_T_CHECK, 24, 8, 128), True, False, bf16, False),
@@ -500,46 +577,8 @@ def phase_train_kernels():
     for tower, (B, N, H, D) in _towers(TOWER_FRAMES).items():
         cases += [(f"{tower} f32", (2, 145, 4, 4, D), False, True, f32, False),
                   (f"{tower} [{B}, {N}, {H}x{D}]", (B, N, H, H, D), False, True, bf16, True)]
-    for label, (B, T, Hq, Hkv, D), causal, packed, dtype, timed in cases:
-        args = bwd_inputs(B, T, Hq, Hkv, D, causal, dtype, packed)
-        scale = 1.0 / math.sqrt(D)
-        rtol = ROW_RTOL if dtype == bf16 else F32_ATOL
-        dq = fa.flash_dq_kernel(*args, scale, causal)
-        dk, dv = fa.flash_dkv_kernel(*args, scale, causal)
-        dq_r = fa.flash_dq_plain(*args, scale, causal)
-        dk_r, dv_r = fa.flash_dkv_plain(*args, scale, causal)
-        torch.cuda.synchronize()
-        err = {"flash_dq_kernel": _compare_rows(f"flash_dq_kernel dQ {label}", dq, dq_r, rtol),
-               "flash_dkv_kernel": max(_compare_rows(f"flash_dkv_kernel dK {label}", dk, dk_r, rtol),
-                                       _compare_rows(f"flash_dkv_kernel dV {label}", dv, dv_r, rtol))}
-        del dq, dk, dv, dq_r, dk_r, dv_r
-        if not timed:
-            continue
-        q, k, v, do = args[:4]
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
-                                                      enable_gqa=Hq != Hkv)
-        fwd_ms = time_ms(sdpa)
-        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do.transpose(1, 2)))
-        lib_ms = fwd_bwd_ms - fwd_ms
-        pairs = T * (T + 1) // 2 if causal else T * T
-        io = 2.0 * (2 * B * T * Hq * D + 2 * B * T * Hkv * D) + 8.0 * B * Hq * T  # q, dO, k, v, lse, delta
-        pair = []
-        for name, mult, out_bytes in (("flash_dq_kernel", 6, 2.0 * B * T * Hq * D),
-                                      ("flash_dkv_kernel", 8, 4.0 * B * T * Hkv * D)):
-            fn = getattr(fa, name)
-            ms = time_ms(lambda: fn(*args, scale, causal))
-            plain = getattr(fa, name.replace("_kernel", "_plain"))
-            plain_ms = time_ms(lambda: plain(*args, scale, causal), reps=2, rounds=3, warmup=1)
-            pair.append(_row(name, f"{label} (yardstick: SDPA backward, dQ+dK+dV)",
-                             "tdc_video_tpu/ops/flash_attention.py:" + ("433" if name == "flash_dq_kernel" else "489"),
-                             err[name], ms, plain_ms, lib_ms, mult * pairs * D * B * Hq, io + out_bytes))
-        pair_ms = pair[0]["ms"] + pair[1]["ms"]
-        log(f"[2] K5+K6 {label}: {pair_ms:.4f} ms against the SDPA backward's {lib_ms:.4f} ms "
-            f"({pair_ms / lib_ms:.2f}x); bound {pair[0]['bound_ms'] + pair[1]['bound_ms']:.4f} ms "
-            f"({100 * (pair[0]['bound_ms'] + pair[1]['bound_ms']) / pair_ms:.1f}% of it)")
-        for r in pair:
-            r.update(pair_ms=pair_ms, pair_vs_library=pair_ms / lib_ms)
+    for label, dims, causal, packed, dtype, timed in cases:
+        for r in _bwd_rows(rnd, label, dims, causal, packed, dtype, timed):
             rows.setdefault(r["name"], r)
     log("kernels " + json.dumps({r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                                  for r in rows.values()}))
@@ -1012,16 +1051,17 @@ def train_conversation():
     ]
 
 
-def train_batch(cfg, n_frames: int):
+def train_batch(cfg, n_frames: int, tok=None):
     """One stage-2 sample as the JAX trainer's batch dict of numpy arrays:
     preprocess/pack_text labels (assistant turns only), n_frames synthetic
     frames through the device-side preprocessing, the Q-Former prompt ids,
-    and the aspect layout of 360x640 frames."""
+    and the aspect layout of 360x640 frames.  `tok`: the byte-level
+    tokenizer of the config's LM (Llama-3's by default)."""
     from tdc_video_tpu_torch.compress.aspect import frame_token_layout
     from tdc_video_tpu_torch.data.images import device_preprocess
     from tdc_video_tpu_torch.data.preprocess import pack_text, preprocess
 
-    tok = ByteTokenizer()
+    tok = tok or ByteTokenizer()
     out = preprocess([train_conversation()], tok, cfg.conv_version, has_image=True)
     packed = pack_text(out["input_ids"], out["labels"], TRAIN_TEXT_LEN, cfg.lm.pad_token_id)
     qids = np.zeros((1, 64), np.int32)
@@ -1100,7 +1140,7 @@ def phase_train(cfg):
     """Stage-2 video SFT at full width and depth: flash vs xla loss and LM
     gradients, then 2 optimizer steps.  Returns (params, counts of K5/K6 per
     micro-step)."""
-    from tdc_video_tpu_torch.model import init_tdc, prepare_multimodal_inputs, tdc_loss
+    from tdc_video_tpu_torch.model import init_tdc, tdc_loss
     from tdc_video_tpu_torch.train.stages import stage2_video_sft
     from tdc_video_tpu_torch.train.step import train_view
     from tdc_video_tpu_torch.train.trainer import Trainer
@@ -1123,20 +1163,10 @@ def phase_train(cfg):
         f"towers frozen")
 
     # one loss-and-gradient pass per attention path, before the optimizer state exists
-    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-    for k in ("siglip_px", "dino_px"):
-        b[k] = b[k].to(cfg.dtype)
+    b = _to_dev(cfg, batch)
     # the spliced sequence's non-pad rows (text less the <image> slot, plus
     # the visual tokens), for the tokens/s of real tokens
-    with torch.no_grad():
-        mm = prepare_multimodal_inputs(
-            cfg, params, b["input_ids"], b["image_pos"], b["siglip_px"], b["dino_px"],
-            b["frame_mask"], b["qformer_text_ids"], b["qformer_text_mask"], labels=b["labels"],
-            text_len=b["text_len"], has_image=b["has_image"], token_valid=b["token_valid"],
-            query_pool=b["query_pool"], max_len=tcfg.model_max_length,
-            max_visual_len=tcfg.max_visual_len, attn_impl="flash")
-        n_real = int(mm["attn_mask"].sum())
-        del mm
+    n_real = _non_pad_rows(cfg, tcfg, params, b)
     n_vis = n_real - (n_text - 1)
     log(f"[6] spliced sequence: {n_real} non-pad rows of {tcfg.model_max_length} "
         f"({n_text - 1} text + {n_vis} visual tokens)")
@@ -1521,13 +1551,13 @@ class QwenByteTokenizer(ByteTokenizer):
     SPECIALS = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|endoftext|>": 151643}
 
 
-def synth_wav(seed: int) -> np.ndarray:
-    """AV_SECONDS of 16 kHz mono: three tones whose loudness changes every
+def synth_wav(seed: int, seconds: int = AV_SECONDS) -> np.ndarray:
+    """`seconds` of 16 kHz mono: three tones whose loudness changes every
     few seconds, with noise, silent from AV_SILENT_FROM seconds on."""
     rng = np.random.default_rng(seed)
-    n = AV_SECONDS * 16000
+    n = seconds * 16000
     x = np.arange(n) / 16000
-    env = np.repeat(rng.uniform(0.2, 1.0, (AV_SECONDS // 4 + 1, 3)), 4 * 16000, axis=0)[:n]
+    env = np.repeat(rng.uniform(0.2, 1.0, (seconds // 4 + 1, 3)), 4 * 16000, axis=0)[:n]
     wav = sum(0.2 * env[:, i] * np.sin(2 * np.pi * f0 * x)
               for i, f0 in enumerate((220.0, 440.0, 1250.0)))
     wav = (wav + 0.03 * rng.normal(size=n)).astype(np.float32)
@@ -1536,13 +1566,18 @@ def synth_wav(seed: int) -> np.ndarray:
 
 
 def _tree_to(tree, fn):
-    return {k: _tree_to(v, fn) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, fn) for v in tree)
+    return None if tree is None else fn(tree)
 
 
 def phase_audio_visual():
     """Phase 9: audio-visual QA with TDC-Qwen2-7B at full width and depth
     (module docstring).  Returns (the K1 row at this prefill's shape, the
-    launch counts of the warm answer)."""
+    launch counts of the warm answer, {"cfg", "params"}: the bf16 model,
+    which phase 11 trains on)."""
     from tdc_video_tpu_torch.compress.tdc import assign_chunks
     from tdc_video_tpu_torch.config import tdc_qwen2_7b
     from tdc_video_tpu_torch.eval.runner import TDCPredictor, audio_request, prefill_shape
@@ -1711,10 +1746,452 @@ def phase_audio_visual():
         f"{head_ms:.3f} ms device a step ({head_bytes * 2 / 1e9:.2f} GB bf16 head read once, "
         f"bound {head_bytes * 2 / PEAK_BYTES * 1e3:.3f} ms), {f32_ms:.3f} ms through the f32 "
         f"product it replaced (a {head_bytes * 4 / 1e9:.2f} GB f32 copy made and read); {card()}")
-    del params, pred, p32, p_cpu
+    del pred, p32, p_cpu
     gc.collect()
     torch.cuda.empty_cache()
-    return row, counts
+    return row, counts, {"cfg": cfg, "params": params}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11
+# ---------------------------------------------------------------------------
+
+# stage 3 (audio-visual LoRA): one sample of 64 frames with its 64 s
+# soundtrack (seven 10-s windows) at the preset's 8192 rows; per micro-step
+# the launches of phase 6 (Qwen2-7B has 28 layers, as Llama-3.2-3B)
+S3_FRAMES = 64
+S3_SECONDS = 64
+S3_LAUNCHES = dict(STAGE2_LAUNCHES)
+# QLoRA's export against dequantize + merge recomputed on the host in f32:
+# the dequantized weight is one exactly rounded product on both; the delta
+# A @ B sums 128 products in another order, and the sum with the weight
+# rounds once: within 1e-6 relative (a few ulps), far below a missing delta
+S3_EXPORT_RTOL, S3_EXPORT_ATOL = 1e-6, 1e-8
+# (e): the checkpoint and CLI model, Qwen2-7B(audio) at full width with its
+# depths cut as phase 8 cuts its model; its sample and the CLI's frames
+S3_CUT_FRAMES = 16
+S3_CUT_T = 4096
+S3_CLI_FRAMES = (16, 120, 160)
+
+
+def audio_arrays(wav: np.ndarray, n_frames: int, n_windows: int):
+    """The audio keys of train/dataset.Collator for one sample whose frames
+    are one a second (its _audio_arrays, from a wav in memory): the 10-s
+    windows and masks, and the second groups of the frames."""
+    from tdc_video_tpu_torch.media.io import window_audio
+    from tdc_video_tpu_torch.ops.audio import second_groups
+
+    S = n_windows * 10
+    win = np.zeros((1, n_windows, 160000), np.float32)
+    wmask = np.zeros((1, n_windows, 160000), bool)
+    ws, ms = window_audio(wav)
+    n = min(len(ws), n_windows)
+    win[0, :n], wmask[0, :n] = ws[:n], ms[:n]
+    kb = np.zeros(S, np.int64)
+    kb[:min(S, n_frames)] = 1
+    f, p, g = second_groups(kb)
+    g_size = np.ones((1, n_frames), np.int32)
+    g_size[0, :min(len(g), n_frames)] = g[:n_frames]
+    return {"audio_windows": win, "audio_wmask": wmask,
+            "audio_frame_of_sec": np.clip(f, 0, n_frames - 1)[None].astype(np.int32),
+            "audio_group_pos": p[None].astype(np.int32), "audio_group_size": g_size,
+            "audio_sec_valid": (np.arange(S) < max(1, len(wav) // 16000))[None]}
+
+
+def stage3_batch(cfg, n_frames: int, seconds: int):
+    """One stage-3 sample: train_batch's conversation and frames (ChatML) and
+    a `seconds` soundtrack, as the trainer's batch dict."""
+    batch = train_batch(cfg, n_frames, QwenByteTokenizer())
+    batch.update(audio_arrays(synth_wav(SEED + 11, seconds), n_frames, -(-seconds // 10)))
+    return batch
+
+
+def stage3_params(params):
+    """The trainer's tree over a bf16 model: the LM, towers and BEATs are the
+    bf16 tensors themselves (the frozen base), the modules stage 3 trains
+    (SVA, compressor, image_newline, audio_proj) f32 copies."""
+    keep = ("lm", "siglip", "dino", "beats")
+    return {k: v if k in keep else _tree_to(v, lambda x: x.detach().float().clone())
+            for k, v in params.items()}
+
+
+def _to_dev(cfg, batch):
+    b = {k: torch.as_tensor(v).to(DEVICE) for k, v in batch.items()}
+    for k in ("siglip_px", "dino_px"):
+        b[k] = b[k].to(cfg.dtype)
+    return b
+
+
+def _non_pad_rows(cfg, tcfg, params, b) -> int:
+    """The spliced sequence's non-pad rows (text, visual and audio tokens)."""
+    from tdc_video_tpu_torch.model import prepare_multimodal_inputs
+
+    audio = {k: b[k] for k in b if k.startswith("audio_")}
+    with torch.no_grad():
+        mm = prepare_multimodal_inputs(
+            cfg, params, b["input_ids"], b["image_pos"], b["siglip_px"], b["dino_px"],
+            b["frame_mask"], b["qformer_text_ids"], b["qformer_text_mask"], labels=b["labels"],
+            text_len=b["text_len"], has_image=b["has_image"], token_valid=b["token_valid"],
+            query_pool=b["query_pool"], max_len=tcfg.model_max_length,
+            max_visual_len=tcfg.max_visual_len, attn_impl="flash", **audio)
+    return int(mm["attn_mask"].sum())
+
+
+def _lora_steps(trainer, batch, tag, n_real):
+    """4 micro-steps (2 optimizer steps) through Trainer.train_step, the
+    launch counters read per micro-step; the second optimizer step's
+    non-pad tokens/s; returns (losses, counts, peak GiB)."""
+    tcfg = trainer.tcfg
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, counts = _micro_steps(trainer, batch, 4, S3_LAUNCHES, tag)
+    wall = walls[2] + walls[3]
+    real = tcfg.gradient_accumulation_steps * n_real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] micro-step losses {losses}; second optimizer step: wall {wall:.3f} s, "
+        f"{real / wall:.1f} non-pad tokens/s ({real} tokens: 2 micro-steps x {n_real}), "
+        f"{2 * tcfg.model_max_length / wall:.1f} LM rows/s; max_memory_allocated {peak:.2f} GiB; "
+        f"{card()}")
+    if trainer.tx.count != 2:
+        raise AssertionError(f"[{tag}] {trainer.tx.count} optimizer updates, expected 2")
+    return losses, counts, peak
+
+
+def _stage3_flash_vs_xla(cfg, trainer, b):
+    """One loss-and-gradient pass with attn_impl "flash" and one with "xla"
+    on the LoRA view of `trainer` (after its updates, so that B is not 0
+    and A has a gradient): the losses within LOSS_ATOL, the cosine of all
+    A/B gradients and of each layer's q/k/v/o adapters alone (A and B
+    together) at least GRAD_COS_MIN."""
+    from tdc_video_tpu_torch.model import tdc_loss
+    from tdc_video_tpu_torch.train.step import lora_view, split_lora, train_view
+
+    tcfg = trainer.tcfg
+    extras, split = train_view(trainer.params), split_lora(trainer.lora)
+    leaves = {f"{k}/{n}": t for k, ab in trainer.lora.items() for n, t in ab.items()}
+    losses, grads = {}, {}
+    for impl in ("flash", "xla"):
+        trainer.tx.zero_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # B's scale is a product made per pass (lora_view)
+        view = dict(extras, lm=lora_view(trainer.params["lm"], split, tcfg.lora_alpha, tcfg.lora_r))
+        loss = tdc_loss(cfg, view, b, max_len=tcfg.model_max_length,
+                        max_visual_len=tcfg.max_visual_len, attn_impl=impl, remat=True,
+                        loss_chunk=tcfg.loss_chunk)
+        loss.backward()
+        losses[impl] = float(loss.detach())
+        grads[impl] = {n: t.grad.to("cpu", torch.float64, copy=True) for n, t in leaves.items()}
+        log(f"[11] (b) {impl}: loss {losses[impl]:.6f}, loss+grads {time.perf_counter() - t0:.3f} s, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    trainer.tx.zero_grad()
+    gf, gx = grads["flash"], grads["xla"]
+    cos = _cosine(torch.cat([g.flatten() for g in gf.values()]),
+                  torch.cat([g.flatten() for g in gx.values()]))
+    per_layer = {}
+    for p in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        a, bb = f"layers/{p}/w/a", f"layers/{p}/w/b"
+        for i in range(gf[a].shape[0]):
+            per_layer[f"{p}[{i}]"] = _cosine(torch.cat([gf[a][i].flatten(), gf[bb][i].flatten()]),
+                                             torch.cat([gx[a][i].flatten(), gx[bb][i].flatten()]))
+    worst = min(per_layer, key=per_layer.get)
+    diff = abs(losses["flash"] - losses["xla"])
+    log(f"[11] (b) flash vs xla: |loss diff| {diff:.3e} (tol {LOSS_ATOL}), cosine of all A/B "
+        f"gradients {cos:.6f} (min {GRAD_COS_MIN}); worst of {len(per_layer)} per-layer q/k/v/o "
+        f"adapters {worst} {per_layer[worst]:.6f} (min {GRAD_COS_MIN})")
+    if (not all(math.isfinite(x) for x in losses.values()) or diff > LOSS_ATOL
+            or cos < GRAD_COS_MIN or per_layer[worst] < GRAD_COS_MIN):
+        raise AssertionError("[11] flash and xla LoRA passes disagree")
+
+
+def stage3_kernel_rows(cfg):
+    """K1, K5 and K6 at the stage-3 LM shape ([1, 8192, 28/4, 128], causal),
+    each held to its plain version row by row at phase 2's bound and timed
+    beside SDPA or its backward; returns their entries of the kernels line."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    rnd = _rnd_fn(SEED + 11)
+    H, Hkv, D = cfg.lm.num_heads, cfg.lm.num_kv_heads, cfg.lm.head_dim
+    label = f"stage-3 LM T={TRAIN_T} causal GQA {H}/{Hkv}"
+    rows = [_fwd_row(fa, rnd, "flash_kernel", "tdc_video_tpu/ops/flash_attention.py:38",
+                     (1, TRAIN_T, TRAIN_T, H, Hkv, D), True)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows[0]["shape"] = f"{label}: {rows[0]['shape']}"
+    rows += _bwd_rows(rnd, label, (1, TRAIN_T, H, Hkv, D), True, False, torch.bfloat16, True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _check_export_on_host(trainer, merged):
+    """QLoRA's export_merged against dequantize + merge recomputed on the
+    host in f32, leaf by leaf: every leaf of the export, the int8 linears
+    stacked over layers at their first, middle and last layer.  Returns
+    (leaves and slices checked, those bitwise equal)."""
+    from tdc_video_tpu_torch.models.quant import dequantize_linear
+
+    tcfg = trainer.tcfg
+    scale = tcfg.lora_alpha / tcfg.lora_r
+    n = same = 0
+
+    def held(name, out, ref):
+        nonlocal n, same
+        out = out.to("cpu")
+        if out.dtype != ref.dtype or not torch.allclose(out, ref, rtol=S3_EXPORT_RTOL,
+                                                        atol=S3_EXPORT_ATOL):
+            raise AssertionError(f"[11] (d) export_merged {name}: max_abs "
+                                 f"{float((out.float() - ref.float()).abs().max()):.3e}")
+        n += 1
+        same += bool(torch.equal(out, ref))
+
+    def walk(q, m, path):
+        if isinstance(q, dict) and "w_q" in q:
+            ab = trainer.lora.get("/".join(path[1:] + ("w",))) if path[0] == "lm" else None
+            stacked = q["w_q"].dim() == 3
+            L = q["w_q"].shape[0]
+            for i in (sorted({0, L // 2, L - 1}) if stacked else [None]):
+                sl = (lambda x: x[i]) if stacked else (lambda x: x)
+                ref = dequantize_linear({"w_q": sl(q["w_q"]).cpu(), "w_scale": sl(q["w_scale"]).cpu()},
+                                        dtype=trainer.cfg.param_dtype)["w"]
+                if ab is not None:
+                    a, b = (sl(ab[k]).detach().cpu().float() for k in ("a", "b"))
+                    ref = ref + ((a @ b) * scale).to(ref.dtype)
+                held("/".join(path) + ("" if i is None else f"[{i}]"), sl(m["w"]), ref)
+            for k in q:
+                if k not in ("w_q", "w_scale"):
+                    walk(q[k], m[k], path + (k,))
+        elif isinstance(q, dict):
+            for k in q:
+                walk(q[k], m[k], path + (k,))
+        elif isinstance(q, (list, tuple)):
+            for i, (x, y) in enumerate(zip(q, m)):
+                walk(x, y, path + (str(i),))
+        elif q is not None:
+            held("/".join(path), m, q.detach().cpu())
+
+    for k in trainer.params:
+        walk(trainer.params[k], merged[k], (k,))
+    return n, same
+
+
+def phase_stage3(av, has_ffmpeg: bool):
+    """Phase 11: stage 3 on phase 9's TDC-Qwen2-7B(audio) (module docstring).
+    Takes phase 9's model out of `av`.  Returns ({"lora", "qlora"}: launch
+    counts of one micro-step, the K1/K5/K6 entries at the stage-3 shape)."""
+    from tdc_video_tpu_torch.train.stages import stage3_audio_lora
+    from tdc_video_tpu_torch.train.trainer import Trainer
+
+    cfg, params = av["cfg"], av.pop("params")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tdc_stage3_") as tmp:
+        tcfg = dataclasses.replace(stage3_audio_lora(os.path.join(tmp, "a")), max_steps=4,
+                                   report_to="none")
+        assert (tcfg.lora_r, tcfg.lora_alpha, tcfg.gradient_accumulation_steps, tcfg.loss_chunk,
+                tcfg.model_max_length) == (128, 256, 2, 512, TRAIN_T)
+        batch = stage3_batch(cfg, S3_FRAMES, S3_SECONDS)
+        b = _to_dev(cfg, batch)
+        n_text = int(batch["text_len"][0])
+        log(f"[11] stage 3 (stage3_audio_lora: r {tcfg.lora_r}, alpha {tcfg.lora_alpha}, "
+            f"accumulation {tcfg.gradient_accumulation_steps}, loss_chunk {tcfg.loss_chunk}) on "
+            f"phase 9's TDC-Qwen2-7B(audio), frozen base bf16 (the preset's is f32), trainable "
+            f"extras and adapters f32; sample: {S3_FRAMES} frames, {S3_SECONDS} s of audio in "
+            f"{batch['audio_windows'].shape[1]} windows, {n_text} text tokens, "
+            f"{tcfg.model_max_length} LM rows")
+
+        # (a) LoRA
+        lm_snap = {n: t.detach().to("cpu", copy=True) for n, t in _named_leaves(params["lm"]).items()}
+        trainer = Trainer(cfg, tcfg, stage3_params(params), total_steps=2, device=DEVICE)
+        n_lora = sum(t.numel() for ab in trainer.lora.values() for t in ab.values())
+        n_extra = sum(t.numel() for t in trainer.tx.params) - n_lora
+        extras = [k for k in trainer.params
+                  if k != "lm" and any(t.requires_grad for t in _leaves(trainer.params[k]))]
+        log(f"[11] (a) LoRA: {n_lora} adapter parameters ({len(trainer.lora)} targets x "
+            f"{cfg.lm.num_layers} layers), {n_extra} in the trainable extras {extras}")
+        n_real = _non_pad_rows(cfg, tcfg, trainer.params, b)
+        log(f"[11] (a) spliced sequence: {n_real} non-pad rows of {tcfg.model_max_length}")
+        losses_a, counts_a, peak_a = _lora_steps(trainer, batch, "11", n_real)
+        profile_stage("11", "(a) LoRA micro-step 5 under torch.profiler",
+                      lambda: trainer.train_step(batch))
+        moved = [n for n, t in _named_leaves(params["lm"]).items() if not torch.equal(t.cpu(), lm_snap[n])]
+        del lm_snap
+        log(f"[11] (a) LM base: {len(moved)} leaves changed")
+        if moved:
+            raise AssertionError(f"[11] the frozen LM changed: {moved[:5]}")
+
+        # (b) flash vs xla on the LoRA view
+        _stage3_flash_vs_xla(cfg, trainer, b)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) K1, K5, K6 at this path's shape
+        rows = stage3_kernel_rows(cfg)
+
+        # (d) QLoRA: the frozen base int8
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, dataclasses.replace(tcfg, quantize_frozen="int8",
+                                                   output_dir=os.path.join(tmp, "d")),
+                          stage3_params(params), total_steps=2, device=DEVICE)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        params = None  # the bf16 LM and towers: the int8 trainer holds what it needs
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = trainer.params["lm"]
+        linears = [lm["layers"][k] if k.endswith("proj") else lm["layers"]["mlp"][k]
+                   for k in ("q_proj", "k_proj", "v_proj", "o_proj", "gate", "up", "down")]
+        linears.append(lm["lm_head"])
+        if not all(p["w_q"].dtype == torch.int8 and "w" not in p for p in linears):
+            raise AssertionError("[11] (d) the LM linears are not int8")
+        del lm, linears
+        log(f"[11] (d) QLoRA: the LM's linears and head and both towers int8 in {quant_s:.2f} s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with the bf16 base freed")
+        losses_d, counts_d, peak_d = _lora_steps(trainer, batch, "11", n_real)
+        log(f"[11] (d) losses QLoRA {losses_d} beside LoRA {losses_a}; peak {peak_d:.2f} GiB "
+            f"beside {peak_a:.2f} GiB")
+        t0 = time.perf_counter()
+        merged = trainer.export_merged()
+        n_checked, n_same = _check_export_on_host(trainer, merged)
+        log(f"[11] (d) export_merged vs dequantize + merge on the host: {n_checked} leaves and "
+            f"layer slices held (rtol {S3_EXPORT_RTOL:g}, atol {S3_EXPORT_ATOL:g}; the first, "
+            f"middle and last layer of each stacked int8 linear), {n_same} bitwise equal, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del trainer, merged, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) checkpoint, export and the CLI on the cut model
+        _stage3_checkpoint_and_cli(cfg, tmp, has_ffmpeg)
+    log(f"[11] phase 11 in {time.perf_counter() - t_phase:.1f} s; {card()}")
+    return {"lora": counts_a, "qlora": counts_d}, rows
+
+
+def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg):
+    """(e): on Qwen2-7B(audio) at full width, depths cut to phase 8's: a
+    QLoRA Trainer's save restored bitwise by a new Trainer; its export
+    written with save_checkpoint_dir and loaded, answering token-identically
+    to the merged params in memory; then train.run.main on a synthetic
+    data.json, ending with a final/ that loads."""
+    from tdc_video_tpu_torch.builder import load_pretrained_model
+    from tdc_video_tpu_torch.convert.to_hf import save_checkpoint_dir
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.model import init_tdc
+    from tdc_video_tpu_torch.train import run as train_run
+    from tdc_video_tpu_torch.train.stages import stage3_audio_lora
+    from tdc_video_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(
+        full, lm=dataclasses.replace(full.lm, num_layers=CKPT_LAYERS["lm"]),
+        siglip=dataclasses.replace(full.siglip, num_layers=CKPT_LAYERS["siglip"]),
+        dino=dataclasses.replace(full.dino, num_layers=CKPT_LAYERS["dino"]))
+    dev = torch.device(DEVICE)
+    log(f"[11] (e) {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at its start")
+    tcfg = dataclasses.replace(stage3_audio_lora(os.path.join(tmp, "e")), quantize_frozen="int8",
+                               gradient_accumulation_steps=1, max_steps=2, report_to="none",
+                               model_max_length=S3_CUT_T)
+
+    def model(seed):
+        return stage3_params(init_tdc(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                                      torch.bfloat16))
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, model(SEED), total_steps=2, device=dev)
+    batch = stage3_batch(cfg, S3_CUT_FRAMES, S3_CUT_FRAMES)
+    losses = [float(tr.train_step(batch)) for _ in range(2)]
+    tr.save()
+    saved = os.path.join(tcfg.output_dir, "checkpoints", "2")
+    nbytes = sum(os.path.getsize(os.path.join(saved, f)) for f in os.listdir(saved))
+    other = Trainer(cfg, tcfg, model(SEED + 1), total_steps=2, device=dev, lora_key=SEED + 2)
+    if not other.restore_if_available() or other.step != 2:
+        raise AssertionError("[11] (e) no checkpoint restored")
+    n_p, diff_p = _compare_trees(other.params, tr.params)
+    n_l, diff_l = _compare_trees(other.lora, tr.lora)
+    dtypes = sorted({str(t.dtype) for t in _leaves(tr.params)} | {str(t.dtype) for t in _leaves(tr.lora)})
+    log(f"[11] (e) cut model (LM {cfg.lm.num_layers}, SigLIP {cfg.siglip.num_layers}, DINOv2 "
+        f"{cfg.dino.num_layers} layers), QLoRA losses {losses}; save {nbytes} bytes, restored "
+        f"into a new Trainer: {n_p + n_l} leaves ({', '.join(dtypes)}), {len(diff_p + diff_l)} "
+        f"differ ({time.perf_counter() - t0:.1f} s)")
+    if diff_p or diff_l:
+        raise AssertionError(f"[11] (e) restored leaves differ: {(diff_p + diff_l)[:5]}")
+    del other
+
+    # the merged export through the reference layout, loaded as the demo loads
+    t0 = time.perf_counter()
+    merged = _tree_to(tr.export_merged(), lambda x: x.float() if x.is_floating_point() else x)
+    del tr
+    path = os.path.join(tmp, "merged")
+    save_checkpoint_dir(merged, cfg, path)
+    _, loaded, _, _ = load_pretrained_model(path, load_tokenizer=False, dtype=torch.bfloat16,
+                                            device=dev)
+    n_m, diff_m = _compare_trees(loaded.params, merged)
+    log(f"[11] (e) {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated with the merged "
+        f"export and its loaded copy")
+    frames = synth_frames(SEED, S3_CUT_FRAMES)
+    ids = []
+    for p in (merged, loaded.params):
+        pred = TDCPredictor(cfg, p, QwenByteTokenizer(), device_preprocess=True, device=dev)
+        pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+        ids.append(list(pred.stats.last_ids))
+    log(f"[11] (e) export_merged -> save_checkpoint_dir -> load_pretrained_model: config "
+        f"{'equal' if loaded.cfg == cfg else 'differs'}, {n_m} leaves, {len(diff_m)} differ; "
+        f"answers {ids[1]} (loaded) and {ids[0]} (in memory) ({time.perf_counter() - t0:.1f} s)")
+    if diff_m or ids[0] != ids[1] or loaded.cfg != cfg:
+        raise AssertionError("[11] (e) the loaded export differs from the merged params")
+    del merged, loaded, pred
+
+    # the training entry point on a synthetic data.json
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    n, h, w = S3_CLI_FRAMES
+    rng = np.random.default_rng(SEED + 12)
+    rows = []
+    for i in range(2):
+        np.save(os.path.join(data, f"v{i}.npy"), rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+        row = {"video": f"v{i}.npy", "conversations": train_conversation()[:2]}
+        if has_ffmpeg:  # media/io.load_audio decodes through FFmpeg
+            _write_wav(os.path.join(data, f"v{i}.wav"), synth_wav(SEED + i, n))
+            row["audio"] = f"v{i}.wav"
+        rows.append(row)
+    with open(os.path.join(data, "data.json"), "w") as fh:
+        json.dump(rows, fh)
+    out = os.path.join(tmp, "cli")
+    argv = ["--stage", "3", "--model_path", path, "--data_path", os.path.join(data, "data.json"),
+            "--image_folder", data, "--output_dir", out, "--max_steps", "2", "--report_to", "jsonl",
+            "--bert_tokenizer", "", "--max_train_frames", str(n), "--device", DEVICE]
+    trainer = train_run.main(argv, tokenizer=QwenByteTokenizer())
+    losses = [json.loads(x)["loss"] for x in open(os.path.join(out, "metrics.jsonl"))]
+    del trainer
+    gc.collect()
+    _, final, _, _ = load_pretrained_model(os.path.join(out, "final"), load_tokenizer=False,
+                                           device=dev)
+    n_final = sum(t.numel() for t in _leaves(final.params))
+    log(f"[11] (e) train.run.main --stage 3 --max_steps 2 --report_to jsonl --max_train_frames "
+        f"{n} ({'with' if has_ffmpeg else 'without: no FFmpeg libraries for'} a wav per row): "
+        f"losses {losses}, checkpoints {sorted(os.listdir(os.path.join(out, 'checkpoints')))}, "
+        f"final/ loads ({n_final} params, config {'equal' if final.cfg == cfg else 'differs'}) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses) or final.cfg != cfg:
+        raise AssertionError("[11] (e) the training entry point did not end as it should")
+    del final
+    try:
+        from torch.utils import tensorboard  # noqa: F401
+        tb = "imports"
+    except ImportError as e:
+        tb = f"does not import ({e})"
+    log(f"[11] (e) torch.utils.tensorboard {tb} on this machine")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _write_wav(path: str, wav: np.ndarray) -> None:
+    import wave
+
+    with wave.open(path, "wb") as fh:
+        fh.setnchannels(1)
+        fh.setsampwidth(2)
+        fh.setframerate(16000)
+        fh.writeframes((np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
 
 
 def _compare_trees(a, b, path=""):
@@ -1800,13 +2277,19 @@ def main() -> int:
         r["launches_demo"] = None if demo_counts is None else demo_counts[r["name"]]
     gc.collect()
     torch.cuda.empty_cache()
-    k1_av, counts_av = phase_audio_visual()
+    k1_av, counts_av, av = phase_audio_visual()
     k1_av["launches_av"] = counts_av["flash_kernel"]
     for r in rows + train_rows:  # each kernel's launches on phase 9's and 10's paths
         r["launches_av"] = counts_av[r["name"]]
         for leg, c in counts10.items():
             r[f"launches_{leg}"] = c[r["name"]]
-    print(json.dumps({"kernels": rows + train_rows + [k1_av]}))
+    counts11, s3_rows = phase_stage3(av, has_ffmpeg)
+    for r in s3_rows:  # K1, K5, K6 at the stage-3 shape: launches per LoRA micro-step
+        r["launches"] = counts11["lora"][r["name"]]
+    for r in rows + train_rows + [k1_av] + s3_rows:  # each kernel on phase 11's two legs
+        for leg, c in counts11.items():
+            r[f"launches_{leg}"] = c[r["name"]]
+    print(json.dumps({"kernels": rows + train_rows + [k1_av] + s3_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

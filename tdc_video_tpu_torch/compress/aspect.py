@@ -54,3 +54,8 @@ def frame_token_layout(cfg: TDCConfig, orig_h: int, orig_w: int) -> Tuple[np.nda
         int(orig_w),
         cfg.compression.context_token_num,
     )
+
+
+def square_layout(cfg: TDCConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """The layout of a square frame (and of a sample without frames)."""
+    return frame_token_layout(cfg, 1, 1)

@@ -4,7 +4,9 @@ port's parameter tree of tensors.
 The port keeps the JAX layout (weights [d_in, d_out], layers stacked on
 axis 0), so this is a plain tree map with no transposes.  Callers hand over
 the JAX tree as numpy (e.g. `jax.tree_util.tree_map(np.asarray, params)`);
-nothing here imports JAX.
+nothing here imports JAX.  A JAX LoRA tree ({"layers/q_proj/w": {"a", "b"}},
+train/lora.py) crosses the same way, keys unchanged, so that both packages
+can train the same adapters (Trainer(..., lora=...)).
 """
 
 from __future__ import annotations

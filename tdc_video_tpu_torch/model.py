@@ -6,6 +6,7 @@ tdc_video_tpu/model.py; frame_pos is not ported).
     prepare_visual                    segmentation + TDC compression [Vmax, H]
     prepare_multimodal_inputs         encode + compress + splice     [B, Lmax, H]
     prepare_multimodal_from_features  compression + splice           [B, Lmax, H]
+    prepare_multimodal_multi_image    images (no compression) + splice [B, Lmax, H]
     tdc_loss                          all of the above + LM CE       scalar
 
 Training remat (JAX's jax.checkpoint) is torch.utils.checkpoint without
@@ -273,6 +274,38 @@ def prepare_multimodal_from_features(
         text_embeds, image_pos, visual, torch.stack(nvis), max_len, labels=labels,
         text_len=text_len, has_image=has_image,
     )
+    return {"embeds": embeds, "attn_mask": attn_mask, "labels": out_labels, "seq_len": seq_len}
+
+
+def prepare_multimodal_multi_image(
+    cfg: TDCConfig,
+    params: Params,
+    input_ids: torch.Tensor,  # [B, L]
+    image_pos_multi: torch.Tensor,  # [B, M] ascending <image> positions, -1 pad
+    siglip_px: torch.Tensor,  # [B, M, Hs, Ws, 3] one image per slot
+    dino_px: torch.Tensor,  # [B, M, Hd, Wd, 3]
+    labels: Optional[torch.Tensor] = None,  # [B, L]
+    text_len: Optional[torch.Tensor] = None,  # [B]
+    max_len: int = 4096,
+    attn_impl: str = "xla",
+) -> Dict[str, torch.Tensor]:
+    """Stage-1-style conversations with several <image> tokens per sample
+    (JAX :433-482): each image contributes its uncompressed SVA grid (plus
+    newline) tokens, no TDC compression, as the reference's image path."""
+    from .compress.assembly import splice_visual_multi
+
+    B, M = image_pos_multi.shape
+    flat_sig = siglip_px.reshape((B * M,) + siglip_px.shape[2:])
+    flat_dino = dino_px.reshape((B * M,) + dino_px.shape[2:])
+    feats, _ = encode_frames(cfg, params, flat_sig, flat_dino, attn_impl=attn_impl)
+    P = feats.shape[1]
+    text_embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype)
+    visual = feats.reshape(B, M, P, -1).to(text_embeds.dtype)
+    n_visual = torch.full((B, M), P, dtype=torch.int32, device=input_ids.device)
+    if text_len is None:
+        text_len = torch.full((B,), input_ids.shape[1], dtype=torch.int32, device=input_ids.device)
+    embeds, attn_mask, out_labels, seq_len = splice_visual_multi(
+        text_embeds, image_pos_multi, visual, n_visual, max_len, labels=labels, text_len=text_len)
     return {"embeds": embeds, "attn_mask": attn_mask, "labels": out_labels, "seq_len": seq_len}
 
 

@@ -2,8 +2,9 @@
 
 Modules are plain functions over parameter trees: nested dicts of tensors in
 the JAX layout (weights [d_in, d_out] applied as x @ w).  int8 weights
-(models/quant.py) dispatch on the "w_q" key as in JAX; the LoRA branches of
-`linear` are not ported.
+(models/quant.py) dispatch on the "w_q" key as in JAX; LoRA adapters grafted
+beside a weight ("lora_a", "lora_b": train/lora.graft_lora) add (x @ A) @ B
+in `linear`, over a float or an int8 base.
 
 Products with f32 output (`dot_f32`, JAX's preferred_element_type=float32)
 run on CUDA as input-dtype GEMMs with f32 accumulation and output
@@ -138,9 +139,11 @@ def linear(p: Params, x: torch.Tensor, dtype=None, act_quant: bool = False) -> t
     weight to x's dtype as a tensor, where XLA fuses the convert into the
     dot); act_quant=True (towers, act-quant prefill) quantizes x per row and
     runs the s8 x s8 product.  act_quant is a no-op for float weights.
-    LoRA keys are not ported and raise."""
-    if "lora_a" in p:
-        raise NotImplementedError("LoRA linears are not ported (ROADMAP.md queue 1 item 3)")
+
+    LoRA (train/lora.graft_lora): with "lora_a" [in, r] and "lora_b" [r, out]
+    (B already scaled by alpha / r) beside the weight, y = x @ W + (x @ A) @ B
+    as two thin products in x's dtype, then the bias; over an int8 base the
+    scaled int8 product takes the place of x @ W (QLoRA)."""
     if dtype is not None:
         x = x.to(dtype)
     if "w_q" in p:
@@ -149,10 +152,10 @@ def linear(p: Params, x: torch.Tensor, dtype=None, act_quant: bool = False) -> t
         else:
             y = x @ p["w_q"].to(x.dtype)
             y = y * p["w_scale"].to(y.dtype)
-        if "b" in p:
-            y = y + p["b"].to(y.dtype)
-        return y
-    y = x @ p["w"].to(x.dtype)
+    else:
+        y = x @ p["w"].to(x.dtype)
+    if "lora_a" in p:
+        y = y + (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

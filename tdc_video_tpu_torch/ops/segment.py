@@ -1,5 +1,6 @@
 """Scene segmentation: cosine similarity of adjacent DINO features + the
-lowest-similarity boundaries (port of tdc_video_tpu/ops/segment.py)."""
+lowest-similarity boundaries, and the uniform frame resample (port of
+tdc_video_tpu/ops/segment.py)."""
 
 from __future__ import annotations
 
@@ -39,3 +40,12 @@ def segment_boundaries(
     short = n_valid <= max_num_segments + 1
     return torch.where(short, frame_mask, long_boundary)
 
+
+
+def uniform_sample_indices(n_frames: int, max_frames: int):
+    """Reference uniform resample (cambrian_arch.py:910-912): floor(interval*i).
+    Host-side helper: returns a python list."""
+    if n_frames <= max_frames:
+        return list(range(n_frames))
+    interval = n_frames / float(max_frames)
+    return [int(interval * i) for i in range(max_frames)]

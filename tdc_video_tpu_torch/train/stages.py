@@ -1,10 +1,10 @@
 """The three reference training stages as TrainConfig presets (copy of
 tdc_video_tpu/train/stages.py, which is pure Python).
 
-Mirrors scripts/stage{1,2,3}/*.sh flag-for-flag; import the preset and
-override fields.  The presets report to TensorBoard, which the port's
-Trainer does not log to (report_to="jsonl" or "none" instead); stage 3
-needs LoRA, which is not ported.
+Mirrors scripts/stage{1,2,3}/*.sh flag-for-flag; use
+`python -m tdc_video_tpu_torch.train.run --stage 3 ...` or import the preset
+and override fields.  The presets report to TensorBoard
+(torch.utils.tensorboard; `--report_to jsonl` where it does not import).
 """
 
 from __future__ import annotations
@@ -54,8 +54,9 @@ def stage2_video_sft(output_dir: str = "./checkpoints/stage2") -> TrainConfig:
 
 def stage3_audio_lora(output_dir: str = "./checkpoints/stage3") -> TrainConfig:
     """Audio+video LoRA (scripts/stage3/train_video_audio_qwen_lora.sh):
-    lora r=128 alpha=256, lr 5e-6.  LoRA and audio are not ported: the
-    port's Trainer raises NotImplementedError for this preset."""
+    lora r=128 alpha=256, lr 5e-6, the LM frozen under the adapters.
+    `quantize_frozen="int8"` (`--quantize_frozen int8`) stores the frozen
+    base as weight-only int8 (QLoRA)."""
     return TrainConfig(
         output_dir=output_dir,
         learning_rate=5e-6,

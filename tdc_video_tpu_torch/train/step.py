@@ -20,6 +20,15 @@ towers) into per-layer leaf views whose `.grad` are views of the stacked
 stacked size and sum all of them in a buffer before the leaf sees it: one
 extra full-size buffer while an earlier micro-step's gradient is held
 (11 GB for the 3B LM's layers in f32).
+
+LoRA (train/lora.py) trains stacked A [L, in, r] and B [L, r, out] beside
+the frozen LM.  `lora_view` grafts them per layer the same way: the stored
+A and B are split into per-layer leaf views (their `.grad` views of the
+stored `.grad`), and B's alpha / r scale is applied to each layer's view in
+the step, so the product's gradient reaches the stored B.  JAX's graft
+stores the scaled B, which is no leaf: split that product, and no gradient
+reaches B; index it per layer, and each layer's backward pads its gradient
+to the full stacked size.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 
 from ..config import TDCConfig
 from ..model import tdc_loss
+from ..models.lm import layer_params
 
 Params = Any
 Schedule = Callable[[int], float]
@@ -59,6 +69,20 @@ def tree_map_with_path(fn, tree, path: Tuple[str, ...] = ()):
     if tree is None:
         return None
     return fn(path, tree)
+
+
+def tree_leaves_with_path(tree, path: Tuple[str, ...] = (), sort: bool = False) -> list:
+    """[(path names, tensor)] in dict order, or with dict keys sorted (JAX's
+    leaf order) when `sort`."""
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        keys = sorted(tree) if sort else list(tree)
+        return [x for k in keys for x in tree_leaves_with_path(tree[k], path + (str(k),), sort)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, path + (str(i),), sort)]
+    return []
 
 
 class GroupedAdamW:
@@ -103,30 +127,33 @@ class GroupedAdamW:
         self.zero_grad()
 
 
+def split_layers(t: torch.Tensor) -> list:
+    """A stacked leaf -> its per-layer slices.  A leaf that requires grad
+    gives leaf views whose `.grad` are views into its `.grad` (allocated
+    here if missing), so each layer's backward adds into its slice in place."""
+    if not t.requires_grad:
+        return [t[i] for i in range(t.shape[0])]
+    if t.grad is None:
+        t.grad = torch.zeros_like(t)
+    views = []
+    for i in range(t.shape[0]):
+        v = t.detach()[i].requires_grad_()
+        v.grad = t.grad[i]
+        views.append(v)
+    return views
+
+
 def train_view(params: Params) -> Params:
     """The param tree the loss runs on: each stacked `layers` leaf that
-    requires grad becomes a list of per-layer leaf views with `.grad` views
-    into the stacked `.grad` (allocated here if missing); the rest is shared
-    as is.  The optimizer keeps updating the stacked leaves in place, which
-    the views see."""
-
-    def split(t: torch.Tensor):
-        if not t.requires_grad:
-            return [t[i] for i in range(t.shape[0])]
-        if t.grad is None:
-            t.grad = torch.zeros_like(t)
-        views = []
-        for i in range(t.shape[0]):
-            v = t.detach()[i].requires_grad_()
-            v.grad = t.grad[i]
-            views.append(v)
-        return views
+    requires grad becomes a list of per-layer leaf views (`split_layers`);
+    the rest is shared as is.  The optimizer keeps updating the stacked
+    leaves in place, which the views see."""
 
     def per_layer(tree, n: int):
         if isinstance(tree, dict):
             parts = {k: per_layer(v, n) for k, v in tree.items()}
             return [{k: p[i] for k, p in parts.items()} for i in range(n)]
-        return split(tree)
+        return split_layers(tree)
 
     out = dict(params)
     for top in STACKED:
@@ -134,6 +161,44 @@ def train_view(params: Params) -> Params:
             n = tree_leaves(params[top]["layers"])[0].shape[0]
             out[top] = dict(params[top], layers=per_layer(params[top]["layers"], n))
     return out
+
+
+def split_lora(lora: Params) -> Params:
+    """{key: {"a", "b"}} -> the same with each adapter of a stacked LM layer
+    weight (key "layers/...") split into per-layer leaf views
+    (`split_layers`); other adapters stay whole.  Made once: the views stay
+    valid while the optimizer updates A and B in place."""
+    return {k: {n: split_layers(t) if k.startswith("layers/") else t for n, t in ab.items()}
+            for k, ab in lora.items()}
+
+
+def lora_view(lm: Params, lora_split: Params, alpha: float, rank: int) -> Params:
+    """The LM tree the loss runs on under LoRA: train/lora.graft_lora over
+    per-layer views.  `lm["layers"]` (stacked, frozen) becomes a list of
+    per-layer trees, each with its A view and its B view times alpha / rank
+    beside the adapted weight; the scale is a product made in this call, so
+    call it once per step.  The caller's tree is not changed."""
+    scale = alpha / rank
+    layers = lm["layers"]
+    n = tree_leaves(layers)[0].shape[0] if isinstance(layers, dict) else len(layers)
+    per_layer = [layer_params(layers, i) for i in range(n)]
+    out = lm
+    for key, ab in lora_split.items():
+        names = key.split("/")
+        if names[0] == "layers":
+            for i in range(n):
+                per_layer[i] = graft_at(per_layer[i], names[1:], ab["a"][i], ab["b"][i] * scale)
+        else:
+            out = graft_at(out, names, ab["a"], ab["b"] * scale)
+    return dict(out, layers=per_layer)
+
+
+def graft_at(tree: Params, names, a, b) -> Params:
+    """A copy of the dicts along `names` (less the weight's own name) with
+    lora_a / lora_b set beside the weight; the rest of the tree is shared."""
+    if len(names) == 1:
+        return dict(tree, lora_a=a, lora_b=b)
+    return dict(tree, **{names[0]: graft_at(tree[names[0]], names[1:], a, b)})
 
 
 def set_trainable(params: Params, mask: Params) -> None:

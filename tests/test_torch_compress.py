@@ -174,3 +174,61 @@ def test_splice_visual_dynamic():
     close(out[0], ref[0], 0, 0)
     for o, r in zip(out[1:], ref[1:]):
         _eq(o, r)
+
+
+@pytest.mark.parametrize("case", ["two_images", "unused_slots", "truncated"])
+def test_splice_visual_multi(case):
+    """Batched splice of several <image> slots vs JAX's per-sample function
+    under vmap (tests/test_compress.py::TestSpliceMulti's cases: two images
+    in order, unused slots (-1) and a text-only row, a sequence cut at
+    max_len): embeddings exact, masks, labels and lengths equal."""
+    rng = np.random.default_rng(6)
+    B, L, M, V, H = 3, 10, 3, 5, 4
+    max_len = 11 if case == "truncated" else 24
+    te = rng.normal(size=(B, L, H)).astype(np.float32)
+    vis = rng.normal(size=(B, M, V, H)).astype(np.float32)
+    ipos = {"two_images": [[2, 5, -1], [1, 8, -1], [0, 3, 9]],
+            "unused_slots": [[4, -1, -1], [-1, -1, -1], [2, 6, -1]],
+            "truncated": [[2, 5, 7], [1, 8, -1], [0, 3, 9]]}[case]
+    ipos = np.asarray(ipos, np.int32)
+    nv = rng.integers(1, V + 1, (B, M)).astype(np.int32)
+    tl = np.array([10, 9, 10], np.int32)
+    labels = rng.integers(0, 50, (B, L)).astype(np.int32)
+    ref = jax.vmap(lambda a, b, c, d, e, f: jasm.splice_visual_multi(a, b, c, d, max_len, labels=f,
+                                                                     text_len=e))(
+        jnp.asarray(te), jnp.asarray(ipos), jnp.asarray(vis), jnp.asarray(nv), jnp.asarray(tl),
+        jnp.asarray(labels))
+    out = tasm.splice_visual_multi(t(te), t(ipos), t(vis), t(nv), max_len, labels=t(labels),
+                                   text_len=t(tl))
+    close(out[0], ref[0], 0, 0)
+    for o, r in zip(out[1:], ref[1:]):
+        _eq(o, r)
+    nolab = tasm.splice_visual_multi(t(te), t(ipos), t(vis), t(nv), max_len)
+    assert nolab[2] is None
+
+
+@pytest.mark.parametrize("image_pos,n_vis,max_len", [(3, 6, 20), (0, 10, 20), (6, 4, 9), (3, 0, 12)])
+def test_splice_visual(image_pos, n_vis, max_len):
+    """The per-sample splice at a fixed <image> position vs JAX's
+    (tests/test_compress.py::test_splice_visual, and cuts at max_len, an
+    image first or last, no visual tokens): all outputs equal."""
+    rng = np.random.default_rng(7)
+    L, H, V = 7, 4, 10
+    text = rng.normal(size=(L, H)).astype(np.float32)
+    visual = rng.normal(size=(V, H)).astype(np.float32)
+    labels = np.arange(L, dtype=np.int32)
+    ref = jasm.splice_visual(jnp.asarray(text), image_pos, jnp.asarray(visual), jnp.asarray(n_vis),
+                             max_len, jnp.asarray(labels))
+    out = tasm.splice_visual(t(text), image_pos, t(visual), torch.tensor(n_vis), max_len,
+                             t(labels))
+    close(out[0], ref[0], 0, 0)
+    for o, r in zip(out[1:], ref[1:]):
+        _eq(o, r)
+
+
+def test_uniform_sample_indices_and_square_layout():
+    """The host helpers the training collator uses, equal to JAX's."""
+    for n, m in [(5, 8), (8, 8), (9, 8), (224, 64), (1000, 224)]:
+        assert tseg.uniform_sample_indices(n, m) == jseg.uniform_sample_indices(n, m)
+    for jv, tv in zip(jasp.square_layout(jc.tdc_tiny()), tasp.square_layout(tc.tdc_tiny())):
+        np.testing.assert_array_equal(tv, jv)

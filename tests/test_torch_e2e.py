@@ -167,3 +167,32 @@ def test_decode_loop_checks_done_every_k_steps(params, eos_at, monkeypatch):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     assert true_steps <= steps < true_steps + k
     assert len(reads) <= steps // k + 1
+
+
+def test_prepare_multimodal_multi_image_matches_jax():
+    """Two <image> slots per sample (one row with a single image) through the
+    uncompressed stage-1 image path, against JAX at 3e-4 in f32
+    (tests/test_model_e2e.py::TestMultiImage): embeddings, masks, labels
+    and lengths."""
+    from tdc_video_tpu_torch import model as tmodel
+
+    jcfg, tcfg = _cfgs(compress_f32=True)
+    jp = jmodel.init_tdc(jax.random.PRNGKey(0), jcfg)
+    B, M, L = 2, 2, 24
+    rng = np.random.default_rng(5)
+    s, d = jcfg.siglip.image_size, jcfg.dino.image_size
+    ids = rng.integers(2, 100, (B, L)).astype(np.int32)
+    pos = np.asarray([[3, 9], [5, -1]], np.int32)
+    sig = rng.normal(0, 1, (B, M, s, s, 3)).astype(np.float32)
+    dino = rng.normal(0, 1, (B, M, d, d, 3)).astype(np.float32)
+    labels = rng.integers(2, 100, (B, L)).astype(np.int32)
+    ref = jmodel.prepare_multimodal_multi_image(
+        jcfg, jp, jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(sig), jnp.asarray(dino),
+        labels=jnp.asarray(labels), max_len=128)
+    out = tmodel.prepare_multimodal_multi_image(tcfg, to_torch(jp), t(ids), t(pos), t(sig), t(dino),
+                                                labels=t(labels), max_len=128)
+    close(out["embeds"], ref["embeds"])
+    for k in ("attn_mask", "labels", "seq_len"):
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]), err_msg=k)
+    P = tmodel.frame_token_len(tcfg)
+    assert int(out["seq_len"][0]) == L + 2 * P - 2 and int(out["seq_len"][1]) == L + P - 1

@@ -33,7 +33,8 @@ def test_port_and_smoke_script_import_no_jax():
         assert len(names) >= 20, names
         # the serving options' modules (quantization, speculative decoding,
         # profiling) among them
-        for m in ("models.quant", "serving.speculative", "utils.profiling"):
+        for m in ("models.quant", "serving.speculative", "utils.profiling", "train.lora",
+                  "train.dataset", "train.runner_utils", "train.run"):
             assert "tdc_video_tpu_torch." + m in names, m
         print(len(names))
         """
@@ -75,7 +76,9 @@ def test_smoke_script_fails_without_cuda():
 
 def test_train_modules_import_and_trainer_needs_cuda():
     """The training slice's modules import without JAX (covered above) and
-    the Trainer, an entry point, raises without CUDA unless given the CPU."""
+    the Trainer, an entry point, raises without CUDA unless given the CPU;
+    the stage-3 preset (LoRA) builds on the CPU, and only a device mesh and
+    multi-process runs raise NotImplementedError."""
     from tdc_video_tpu_torch.data import preprocess  # noqa: F401
     from tdc_video_tpu_torch.train import stages, step, trainer  # noqa: F401
 
@@ -88,5 +91,16 @@ def test_train_modules_import_and_trainer_needs_cuda():
     params = init_tdc(tdc_tiny(), torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         trainer.Trainer(tdc_tiny(), trainer.TrainConfig(), params, total_steps=1)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        trainer.Trainer(tdc_tiny(), stages.stage3_audio_lora(), params, total_steps=1, device="cpu")
+    tr = trainer.Trainer(tdc_tiny(), stages.stage3_audio_lora(), params, total_steps=1,
+                         device="cpu")
+    assert tr.lora and tr.lora["layers/q_proj/w"]["a"].shape[-1] == 128
+    with pytest.raises(NotImplementedError, match="mesh"):
+        trainer.Trainer(tdc_tiny(), trainer.TrainConfig(), params, total_steps=1, mesh=object(),
+                        device="cpu")
+    from tdc_video_tpu_torch.train import run
+
+    for flag in (["--coordinator", "localhost:1234"], ["--num_processes", "2"],
+                 ["--process_id", "0"]):
+        with pytest.raises(NotImplementedError, match="multi-process"):
+            run.main(["--model_path", "m", "--data_path", "d", "--output_dir", "o",
+                      "--device", "cpu", *flag])

@@ -299,9 +299,18 @@ def test_unknown_quantize_mode_raises(ckpt):
 
 
 def test_lora_linear_raises():
-    p = {"w": torch.ones(4, 4), "lora_a": torch.ones(4, 2), "lora_b": torch.ones(2, 4)}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tlayers.linear(p, torch.ones(1, 4))
+    """A LoRA linear over an int8 weight computes the scaled int8 product
+    plus (x A) B; merging the adapter into the int8 weight raises
+    (train/lora.apply_lora: dequantize first)."""
+    from tdc_video_tpu_torch.train import lora as tlora
+
+    q = tquant.quantize_linear_int8({"w": torch.ones(4, 4)})
+    p = dict(q, lora_a=torch.ones(4, 2), lora_b=torch.ones(2, 4))
+    x = torch.ones(1, 4)
+    assert torch.equal(tlayers.linear(p, x), tlayers.linear(q, x) + 8.0)
+    with pytest.raises(ValueError, match="int8"):
+        tlora.apply_lora({"layer": {"q_proj": q}},
+                         {"layer/q_proj/w": {"a": torch.ones(4, 2), "b": torch.ones(2, 4)}}, 2, 2)
 
 
 def test_encode_frames_int8_towers_match_jax():
