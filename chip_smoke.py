@@ -136,6 +136,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Every kernel's entry gets its launches on legs (a) and (d)
    (`launches_lora`, `launches_qlora`); K1, K5 and K6 get entries at the
    stage-3 shape.
+12. multi-request serving, run right after phase 10 on phase 3's model and
+   frames (sent with a video_uid), one JSON line a leg with the card: (a)
+   TDCPredictor.answer_many of 4 questions (phase 3's and three of other
+   lengths) in 4 slots, 16 new tokens: each answer token-identical to
+   `answer` on its question alone, or parting first where the solo run's
+   top-2 logit gap is under 1e-2; one prefix prefill (the Q-Former is
+   unconditioned, so the video prefix is shared); the towers run once and
+   K1 only in the prefix prefill (launches K1 28, K2 40, K3 27, exactly);
+   printed: the wall beside the 4 solo answers', the shared prefix, the
+   time to each first token and the steady decode tokens/s at 4 slots and
+   at 1 (the decode chunks' own seconds); (b) the same with
+   prefill_chunk=512: the tokens of (a) or a near tie, the prefill chunks
+   and the largest gap between decode chunks; (c) sampled as the reference
+   demo samples (temperature 0.2, top_k 50), seed 0: two runs identical, 1
+   and 4 slots identical for each question or parting on a near tie of the
+   gumbel-perturbed logits (under 1e-2 over the temperature), a mixed batch
+   whose greedy rows equal (a)'s and sampled rows the all-sampled run's,
+   and sample_rows on the card equal to the host CPU's on the same logits;
+   (d) the engine speculating with a window of 8: (a)'s tokens or a near
+   tie, verify steps; (e) a 3-turn ChatSession: turn 2 token-identical to a
+   from-scratch prefill of the two-turn prompt or parting on a near tie,
+   kv_len growing, turns 2-3 launching no tower kernel, the turn walls.
+   Every kernel's entry gets its launches in (a) and over the 3 turns of
+   (e) (`launches_serve`, `launches_chat`).  Phase 8's clip leg also runs
+   cli/serve (2 questions, 2 slots) on its checkpoint and clip.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -824,9 +849,9 @@ def _answer(pred, frames, tag):
     return st.last_ids, st, counts, peak, wall
 
 
-def _leg(name: str, **numbers):
+def _leg(phase: int, name: str, **numbers):
     """One JSON line per leg, its numbers beside the card."""
-    log(json.dumps({"phase": 10, "leg": name, **numbers, "card": card()}))
+    log(json.dumps({"phase": phase, "leg": name, **numbers, "card": card()}))
 
 
 def _decode_step_ms(cfg, params, gen, **kw) -> float:
@@ -842,22 +867,47 @@ def _decode_step_ms(cfg, params, gen, **kw) -> float:
                                               dtype=cfg.dtype), reps=20, rounds=5)
 
 
-def _first_difference_gap(cfg, params, gen, ids, other):
-    """Where two answers first part: (position, top-2 gap of the plain run's
-    logits there), the logits recomputed by feeding the plain ids."""
+def _gap_at(cfg, params, logits, cache, ids, p, sampling=None):
+    """Top-2 gap at position p of the stream `ids`, fed from (logits,
+    cache) of its prefill: of the raw logits when greedy; of the filtered
+    and gumbel-perturbed logits of token p's key when sampled."""
     from tdc_video_tpu_torch.models import lm as lm_mod
-    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+    from tdc_video_tpu_torch.serving import generate as gen_mod
+    from tdc_video_tpu_torch.serving import prng
 
-    p = next(i for i in range(max(len(ids), len(other)))
-             if i >= len(ids) or i >= len(other) or ids[i] != other[i])
-    logits, cache = prefill_encoded(cfg, params, **gen, attn_impl="flash")
     for tok in ids[:p]:
         emb = lm_mod.embed_tokens(cfg.lm, params["lm"], torch.tensor([[tok]], device=DEVICE),
                                   cfg.dtype)
         logits, cache = lm_mod.decode_step(cfg.lm, params["lm"], emb, cache, attn_impl="flash",
                                            dtype=cfg.dtype)
-    top2 = torch.topk(logits[0].float(), 2).values
-    return p, float(top2[0] - top2[1])
+    x = logits[0].float()
+    if sampling:
+        one = lambda v, dt: torch.tensor([v], dtype=dt, device=DEVICE)  # noqa: E731
+        x = gen_mod.filter_rows(logits.float(), one(sampling["temperature"], torch.float32),
+                                one(sampling["top_k"], torch.int32),
+                                one(sampling["top_p"], torch.float32))
+        key = gen_mod.row_keys(one(sampling["seed"], torch.int32), one(p, torch.int32))
+        x = (x + prng.gumbel(key, (x.shape[-1],)))[0]
+    top2 = torch.topk(x, 2).values
+    return float(top2[0] - top2[1])
+
+
+def _first_part(a, b):
+    """The first position where two token lists differ, or None."""
+    if a == b:
+        return None
+    return next(i for i in range(max(len(a), len(b)))
+                if i >= len(a) or i >= len(b) or a[i] != b[i])
+
+
+def _first_difference_gap(cfg, params, gen, ids, other):
+    """Where two answers first part: (position, top-2 gap of the plain run's
+    logits there), the logits recomputed by feeding the plain ids."""
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    p = _first_part(ids, other)
+    logits, cache = prefill_encoded(cfg, params, **gen, attn_impl="flash")
+    return p, _gap_at(cfg, params, logits, cache, ids, p)
 
 
 def phase_serving_options(cfg, params, pred, frames, ids):
@@ -905,7 +955,7 @@ def phase_serving_options(cfg, params, pred, frames, ids):
     head = {k: time_ms(lambda: lm_mod.lm_head(cfg.lm, p["lm"], hidden), reps=5, rounds=3)
             for k, p in (("int8", qparams), ("bf16", params))}
     step = {"int8": _decode_step_ms(cfg, qparams, gen), "bf16": bf16_step_ms}
-    _leg("a_int8", quantize_s=quant_s, prefill_rel=rel, prefill_rel_bound=INT8_REL,
+    _leg(10, "a_int8", quantize_s=quant_s, prefill_rel=rel, prefill_rel_bound=INT8_REL,
          prefill_argmax_same=bool(q_logits.argmax(-1).item() == ref_logits.argmax(-1).item()),
          answer_agreement=agree,
          decode_ms_per_token={"int8": 1e3 * q_st.decode_s / max(q_st.decode_steps, 1),
@@ -944,7 +994,7 @@ def phase_serving_options(cfg, params, pred, frames, ids):
     enc = {"frame_feats": nrel(a_gen["frame_feats"], gen["frame_feats"]),
            "dino_feats": nrel(a_gen["dino_feats"], gen["dino_feats"])}
     a_ids, a_st, counts["int8_all"], a_peak, _ = _answer(apred, frames, "int8-all")
-    _leg("b_int8_all", calibrate_and_quantize_s=calib_s, act_quant_prefill_rel=rel_lm,
+    _leg(10, "b_int8_all", calibrate_and_quantize_s=calib_s, act_quant_prefill_rel=rel_lm,
          act_quant_prefill_rel_bound=ACT_QUANT_REL, encode_feature_rel=enc,
          encode_feature_rel_bound=ENCODE_INT8_REL,
          end_to_end_prefill_rel=_rel(a_logits, ref_logits),
@@ -978,7 +1028,7 @@ def phase_serving_options(cfg, params, pred, frames, ids):
     rel_kv, rel_kv_step = _rel(kv["int8"][0], kv["bf16"][0]), _rel(kv["int8"][1], kv["bf16"][1])
     kvpred = predictor(params, kv_quant="int8")
     kv_ids, kv_st, counts["kv_int8"], kv_peak, _ = _answer(kvpred, frames, "int8 KV")
-    _leg("c_kv_int8", prefill_rel=rel_kv, first_decode_step_rel=rel_kv_step,
+    _leg(10, "c_kv_int8", prefill_rel=rel_kv, first_decode_step_rel=rel_kv_step,
          prefill_rel_bound=INT8_REL,
          answer_agreement=sum(a == b for a, b in zip(kv_ids, ids)) / max(len(ids), 1),
          decode_ms_per_token={"int8_kv": 1e3 * kv_st.decode_s / max(kv_st.decode_steps, 1),
@@ -1000,7 +1050,7 @@ def phase_serving_options(cfg, params, pred, frames, ids):
         tie = _first_difference_gap(cfg, params, gen, ids, s_ids)
         log(f"[10] the speculative answer parts from the plain one at position {tie[0]}, where "
             f"the plain run's top-2 logit gap is {tie[1]:.4e} (near tie below {SPEC_TIE_GAP})")
-    _leg("d_spec", window=SPEC_WINDOW, identical=s_ids == ids, first_difference=tie,
+    _leg(10, "d_spec", window=SPEC_WINDOW, identical=s_ids == ids, first_difference=tie,
          verify_steps=s_st.decode_steps,
          tokens_after_first_per_verify_step=(len(s_ids) - 1) / max(s_st.decode_steps, 1),
          decode_s={"spec": s_st.decode_s, "plain": bf16_st.decode_s},
@@ -1017,11 +1067,266 @@ def phase_serving_options(cfg, params, pred, frames, ids):
         with open(path) as fh:
             names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
     k1 = sorted(n for n in names if port_kernel(n) == "flash_kernel")
-    _leg("e_trace", trace_bytes=size, events_named=len(names), k1_names=k1[:2])
+    _leg(10, "e_trace", trace_bytes=size, events_named=len(names), k1_names=k1[:2])
     if not k1:
         raise AssertionError("[10e] the trace names no K1 launch")
     log(f"[10] phase 10 in {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 12
+# ---------------------------------------------------------------------------
+
+# phase 3's question and three of other lengths, about the same video
+SERVE_QUESTIONS = (QUESTION, "Describe the square.",
+                   "What colour is the background at the start of the clip?",
+                   "How many times does the background change, and where is the bright square "
+                   "when it does? Answer in one sentence.")
+SERVE_SLOTS = 4
+SERVE_CHUNK = 512  # leg (b): prefill_chunk
+# leg (c), as the reference demo samples (main.py:64-65: do_sample,
+# temperature 0.2, HF's default top_k 50), seed 0
+SERVE_SAMPLING = {"temperature": 0.2, "top_k": 50, "top_p": 1.0, "seed": 0}
+CHAT_QUESTIONS = (QUESTION, "What colour is the square?", "Does the background change?")
+
+
+def _trimmed(cfg, ids):
+    from tdc_video_tpu_torch.eval.runner import _trim_generated
+
+    return _trim_generated(ids, cfg.lm)
+
+
+def _hold_tokens(tag, cfg, params, got, want, prefill, sampling=None):
+    """got equal to want, or parting first on a near tie of want's own run:
+    a top-2 gap under SPEC_TIE_GAP (over the temperature for sampled rows,
+    whose logits it divides).  `prefill()` gives want's (logits, cache).
+    Returns None or (position, gap)."""
+    p = _first_part(got, want)
+    if p is None:
+        return None
+    logits, cache = prefill()
+    gap = _gap_at(cfg, params, logits, cache, want, p, sampling)
+    bound = SPEC_TIE_GAP / (sampling["temperature"] if sampling else 1.0)
+    log(f"[12] {tag}: parts at position {p} where the reference's top-2 gap is {gap:.4e} "
+        f"(near tie below {bound:.1e})")
+    if not gap < bound:
+        raise AssertionError(f"[12] {tag}: {got} differs from {want} off a near tie")
+    return p, gap
+
+
+def _serve_run(pred, frames, uid, **kw):
+    """One answer_many with the launch counters set to 0 just before and
+    read just after; returns (raw ids per question, engine, wall s, time to
+    each first token s, launches)."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    first_t = {}
+
+    def on_tokens(req, new):
+        first_t.setdefault(req.uid, time.perf_counter())
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    pred.answer_many(frames, SERVE_QUESTIONS, max_new_tokens=MAX_NEW_TOKENS, video_uid=uid,
+                     on_tokens=on_tokens, **kw)
+    wall = time.perf_counter() - t0
+    counts = dict(fa.launches)
+    eng = next(reversed(pred._engine_cache.values()))
+    ttft = [first_t[i] - t0 for i in range(len(SERVE_QUESTIONS))]
+    return [list(x) for x in pred.stats.last_many_ids], eng, wall, ttft, counts
+
+
+def _decode_rate(eng) -> float:
+    """Steady decode tokens/s: harvested tokens over the decode chunks'
+    own seconds (admission and prefill between chunks excluded)."""
+    return sum(n for _, _, n in eng.chunk_spans) / max(sum(b - a for a, b, _ in eng.chunk_spans),
+                                                        1e-9)
+
+
+def phase_multi_serving(cfg, params, pred, frames):
+    """Phase 12: several questions about one video through answer_many and
+    ChatSession on phase 3's model (module docstring).  Returns the launch
+    counts of legs (a) and (e)."""
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.models import lm as lm_mod
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.serving import generate as gen_mod
+    from tdc_video_tpu_torch.serving import session as sess_mod
+    from tdc_video_tpu_torch.serving.batching import DecodeEngine, Request
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n_q = len(SERVE_QUESTIONS)
+    # solo answers, one question each (the feature cache warm after the first)
+    solo, solo_s, gens = [], [], []
+    for q in SERVE_QUESTIONS:
+        t0 = time.perf_counter()
+        pred.answer(frames, q, max_new_tokens=MAX_NEW_TOKENS, video_uid="p12-solo")
+        solo_s.append(time.perf_counter() - t0)
+        solo.append(list(pred.stats.last_ids))
+        gens.append(pred.prepare(frames, q, max_new_tokens=MAX_NEW_TOKENS,
+                                 video_uid="p12-solo")["gen"])
+
+    def solo_prefill(i):
+        return lambda: prefill_encoded(cfg, params, **gens[i], attn_impl="flash")
+
+    def hold_all(tag, got, want=solo, sampling=None):
+        return [_hold_tokens(f"{tag} q{i}", cfg, params, _trimmed(cfg, g), _trimmed(cfg, w),
+                             solo_prefill(i), sampling) for i, (g, w) in
+                enumerate(zip(got, want))]
+
+    # (a) greedy, 4 slots: a first run pays the allocator's growth; the
+    # second (a video uid not yet cached: the towers run once) is measured
+    _serve_run(pred, frames, "p12-warm", num_slots=SERVE_SLOTS)
+    ids_a, eng, wall, ttft, counts_a = _serve_run(pred, frames, "p12-a", num_slots=SERVE_SLOTS)
+    ties_a = hold_all("(a)", ids_a)
+    rate4 = _decode_rate(eng)
+    # the packed prompts (features cached) and the prefix answer_many shared
+    packed = [pred.pack_prompt(frames, q, video_uid="p12-a") for q in SERVE_QUESTIONS]
+    p_len = pred._shared_prefix_len([(e, m.cpu().numpy(), i) for e, m, i in packed])
+    steps_a, prefix_prefills = eng.steps, eng.prefix_prefills
+    # K1 runs only in the one prefix prefill (a causal T >= 128 forward,
+    # each LM layer); the suffix extends and the decode steps take sdpa;
+    # the towers run once (every DINOv2 and SigLIP layer)
+    expected = {"flash_kernel": cfg.lm.num_layers, "full_attention_nhd": cfg.dino.num_layers,
+                "full_attention_nhd_seqq": cfg.siglip.num_layers, "full_attention": 0,
+                "flash_dq_kernel": 0, "flash_dkv_kernel": 0}
+    ids_1, eng1, wall1, ttft1, _ = _serve_run(pred, frames, "p12-a", num_slots=1)
+    rate1 = _decode_rate(eng1)
+    ties_1 = hold_all("(a, 1 slot)", ids_1)
+    _leg(12, "a_answer_many", slots=SERVE_SLOTS, questions=n_q, new_tokens=MAX_NEW_TOKENS,
+           wall_s=wall, solo_answers_s=solo_s, solo_sum_s=sum(solo_s),
+           time_to_first_token_s=ttft, decode_tokens_per_s={"4_slots": rate4, "1_slot": rate1},
+           wall_1_slot_s=wall1, time_to_first_token_1_slot_s=ttft1, decode_chunks=steps_a,
+           shared_prefix_len=p_len, prompt_rows=[int(m.sum()) for _, m, _ in packed],
+           prefix_prefills=prefix_prefills, launches=counts_a, launches_expected=expected,
+           near_ties=ties_a, near_ties_1_slot=ties_1, ids=ids_a)
+    if prefix_prefills != 1:
+        raise AssertionError(f"[12a] {prefix_prefills} prefix prefills, not 1")
+    if counts_a != expected:
+        raise AssertionError(f"[12a] launches {counts_a}, expected {expected}")
+
+    # (b) chunked admission, 512 tokens a chunk
+    ids_b, eng_b, wall_b, ttft_b, _ = _serve_run(pred, frames, "p12-a", num_slots=SERVE_SLOTS,
+                                                 prefill_chunk=SERVE_CHUNK)
+    gaps = [b - a for a, b in zip(eng_b.chunk_times, eng_b.chunk_times[1:])]
+    ties_b = hold_all("(b)", ids_b, ids_a)
+    _leg(12, "b_chunked_admission", prefill_chunk=SERVE_CHUNK, wall_s=wall_b,
+           prefill_chunks=eng_b.prefill_chunks, largest_gap_between_chunks_s=max(gaps, default=0.0),
+           time_to_first_token_s=ttft_b, near_ties=ties_b)
+    if eng_b.prefill_chunks < 2:
+        raise AssertionError(f"[12b] {eng_b.prefill_chunks} prefill chunks")
+
+    # (c) sampled, as the reference demo samples
+    runs = [_serve_run(pred, frames, "p12-a", num_slots=SERVE_SLOTS, **SERVE_SAMPLING)[0]
+            for _ in range(2)]
+    if runs[0] != runs[1]:
+        raise AssertionError(f"[12c] two sampled runs differ: {runs}")
+    ids_c1 = _serve_run(pred, frames, "p12-a", num_slots=1, **SERVE_SAMPLING)[0]
+    ties_c = []
+    for i, (g, w) in enumerate(zip(ids_c1, runs[0])):
+        # the reference of the tie test: this request's 1-slot stream, from
+        # a solo prefill, each token keyed on (seed + i, index)
+        ties_c.append(_hold_tokens(f"(c) 1 vs 4 slots q{i}", cfg, params, _trimmed(cfg, w),
+                                   _trimmed(cfg, g), solo_prefill(i),
+                                   dict(SERVE_SAMPLING, seed=SERVE_SAMPLING["seed"] + i)))
+    # a mixed batch: questions 1 and 3 sampled, 0 and 2 greedy, in one engine
+    cap = int(np.ceil((max(e.shape[1] for e, _, _ in packed) + MAX_NEW_TOKENS) / 128) * 128)
+    eng_m = DecodeEngine(cfg, params, num_slots=SERVE_SLOTS, capacity=cap, attn_impl="flash",
+                         device=dev)
+    for i, (e, m, pids) in enumerate(packed):
+        s = dict(SERVE_SAMPLING, seed=SERVE_SAMPLING["seed"] + i) if i % 2 else {}
+        eng_m.submit(Request(embeds=e, attn_mask=m.cpu().numpy(), max_new_tokens=MAX_NEW_TOKENS,
+                             uid=i, prompt_ids=pids, prefix_key="video", prefix_len=p_len, **s))
+    by_uid = {r.uid: list(r.tokens) for r in eng_m.run()}
+    for i in (0, 2):
+        if by_uid[i] != ids_a[i]:
+            raise AssertionError(f"[12c] greedy row {i} of the mixed batch {by_uid[i]} differs "
+                                 f"from (a)'s {ids_a[i]}")
+    for i in (1, 3):
+        if by_uid[i] != runs[0][i]:
+            raise AssertionError(f"[12c] sampled row {i} of the mixed batch differs from the "
+                                 "all-sampled run's")
+    # sample_rows on the card and on the host CPU, on the prefill logits
+    logits = torch.cat([prefill_encoded(cfg, params, **g, attn_impl="flash")[0] for g in gens])
+    rows = (torch.full((n_q,), SERVE_SAMPLING["temperature"]),
+            torch.full((n_q,), SERVE_SAMPLING["top_k"], dtype=torch.int32),
+            torch.full((n_q,), SERVE_SAMPLING["top_p"]),
+            torch.arange(n_q, dtype=torch.int32), torch.zeros(n_q, dtype=torch.int32))
+    on_card = gen_mod.sample_rows(logits, *(r.to(dev) for r in rows)).cpu()
+    on_host = gen_mod.sample_rows(logits.cpu(), *rows)
+    t_rows = time_ms(lambda: gen_mod.sample_rows(logits, *(r.to(dev) for r in rows)), reps=5,
+                     rounds=3)
+    _leg(12, "c_sampled", sampling=SERVE_SAMPLING, ids=runs[0], two_runs_identical=True,
+           near_ties_1_vs_4_slots=ties_c, mixed_greedy_rows_identical=True,
+           sample_rows_card=on_card.tolist(), sample_rows_host=on_host.tolist(),
+           sample_rows_ms_4_rows=t_rows)
+    if not torch.equal(on_card, on_host):
+        raise AssertionError(f"[12c] sample_rows on the card {on_card} vs the host {on_host}")
+
+    # (d) speculative lockstep, window 8
+    spred = TDCPredictor(cfg, params, ByteTokenizer(), bert_tokenizer=None,
+                         device_preprocess=True, device=dev, spec_window=SPEC_WINDOW)
+    ids_d, eng_d, wall_d, _, _ = _serve_run(spred, frames, "p12-d", num_slots=SERVE_SLOTS)
+    ties_d = hold_all("(d)", ids_d, ids_a)
+    _leg(12, "d_spec", window=SPEC_WINDOW, wall_s=wall_d, verify_steps=eng_d.steps * eng_d.chunk_tokens,
+           decode_chunks=eng_d.steps, tokens=sum(len(x) for x in ids_d), near_ties=ties_d)
+    del spred, eng_d
+
+    # (e) a 3-turn conversation
+    fa.reset_launches()
+    sess = pred.chat(frames, video_uid="p12-e", max_new_tokens=MAX_NEW_TOKENS)
+    walls, lens, counts_e = [], [], {}
+    for i, q in enumerate(CHAT_QUESTIONS):
+        if i == 1:
+            counts_e = dict(fa.launches)
+            fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.ask(q)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        lens.append(sess._kv_len)
+    later = dict(fa.launches)
+    t1, t2 = sess.turn_tokens[:2]
+    # turn 2 from scratch: one request over [turn-1 prompt | turn-1 tokens |
+    # glue + question 2], prefilled in one shot
+    emb1, mask1, _ = pred.pack_prompt(frames, CHAT_QUESTIONS[0], video_uid="p12-e")
+    valid1 = int(mask1.sum())
+    glue = sess_mod.encode_plain(pred.tok, sess_mod.follow_up_text(
+        cfg, CHAT_QUESTIONS[1], t1[-1] in cfg.lm.eos_token_ids))
+    seq = torch.tensor([list(t1) + list(glue)], device=dev)
+    full = torch.cat([emb1[:, :valid1], lm_mod.embed_tokens(cfg.lm, params["lm"], seq, cfg.dtype)],
+                     dim=1)
+    L = full.shape[1]
+    eng_s = DecodeEngine(cfg, params, num_slots=1, capacity=L + MAX_NEW_TOKENS, attn_impl="flash",
+                         device=dev)
+    eng_s.submit(Request(embeds=full, attn_mask=np.ones((1, L), bool),
+                         max_new_tokens=MAX_NEW_TOKENS, uid=0))
+    (r,) = eng_s.run()
+
+    def scratch_prefill():
+        cache = lm_mod.init_kv_cache(cfg.lm, 1, L + MAX_NEW_TOKENS, cfg.dtype, device=dev)
+        return lm_mod.prefill(cfg.lm, params["lm"], full, torch.ones((1, L), dtype=torch.bool,
+                                                                     device=dev),
+                              cache, attn_impl="flash", dtype=cfg.dtype)
+
+    tie_e = _hold_tokens("(e) turn 2 vs from scratch", cfg, params, _trimmed(cfg, t2),
+                         _trimmed(cfg, list(r.tokens)), scratch_prefill)
+    sess.close()
+    counts_chat = {k: counts_e.get(k, 0) + later[k] for k in later}
+    _leg(12, "e_chat", turns=len(CHAT_QUESTIONS), turn_wall_s=walls, kv_len=lens,
+           launches_turn_1=counts_e, launches_turns_2_3=later, turn2_vs_scratch_tie=tie_e,
+           turn_tokens=sess.turn_tokens, prefix_prefills=sess._engine.prefix_prefills)
+    if not lens[0] < lens[1] < lens[2]:
+        raise AssertionError(f"[12e] kv_len does not grow: {lens}")
+    if later["full_attention_nhd"] or later["full_attention_nhd_seqq"]:
+        raise AssertionError(f"[12e] turns 2-3 ran the towers: {later}")
+    log(f"[12] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return counts_a, counts_chat
 
 
 # ---------------------------------------------------------------------------
@@ -1416,7 +1721,8 @@ def phase_checkpoint(has_ffmpeg: bool, ffmpeg_msg: str):
         path = os.path.join(tmp, "TDC-Llama3.2-3B-cut")
         counts = _round_trip_and_host_path(cfg, path)
         if not has_ffmpeg:
-            log(f"[8] clip leg skipped: pkg-config finds no FFmpeg libraries on this machine: "
+            log(f"[8] clip leg (cli/demo and cli/serve) skipped: pkg-config finds no FFmpeg "
+                f"libraries on this machine: "
                 f"{' | '.join(ffmpeg_msg.splitlines())}")
             return counts, None
         return counts, _demo_clip(path, os.path.join(tmp, "clip.mp4"))
@@ -1524,7 +1830,30 @@ def _demo_clip(ckpt, clip):
     missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
     if out["n_frames"] != 16 or missing:
         raise AssertionError(f"demo: {out['n_frames']} frames, kernels not launched: {missing}")
+    _serve_clip(ckpt, clip)
     return counts
+
+
+def _serve_clip(ckpt, clip):
+    """cli/serve on the same checkpoint and clip: 2 questions in 2 slots,
+    K1-K3 launched."""
+    from tdc_video_tpu_torch.cli import serve
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    args = serve.parse_args(["--model_path", ckpt, "--video", clip, "--question", QUESTION,
+                             "--question", SERVE_QUESTIONS[1], "--slots", "2", "--bert_tokenizer",
+                             "", "--max_new_tokens", str(MAX_NEW_TOKENS), "--device", DEVICE])
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    out = serve.run(args, tokenizer=ByteTokenizer())
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    log(f"[8] serve: {out['n_frames']} frames, {len(out['answers'])} answers in "
+        f"{out['seconds']:.3f} s, ids {out['ids']}, launches {json.dumps(counts)}")
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
+    if len(out["answers"]) != 2 or missing:
+        raise AssertionError(f"serve: {len(out['answers'])} answers, kernels not launched: "
+                             f"{missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -2250,6 +2579,7 @@ def main() -> int:
     ms, n = phase_profile(pred, frames)["encode"]["full_attention_nhd"]
     next(r for r in rows if r["name"] == "full_attention_nhd")["device_ms"] = ms / n
     counts10 = phase_serving_options(cfg, params, pred, frames, list(pred.stats.last_ids))
+    counts12 = dict(zip(("serve", "chat"), phase_multi_serving(cfg, params, pred, frames)))
     del params, pred
     gc.collect()
     torch.cuda.empty_cache()
@@ -2286,8 +2616,8 @@ def main() -> int:
     counts11, s3_rows = phase_stage3(av, has_ffmpeg)
     for r in s3_rows:  # K1, K5, K6 at the stage-3 shape: launches per LoRA micro-step
         r["launches"] = counts11["lora"][r["name"]]
-    for r in rows + train_rows + [k1_av] + s3_rows:  # each kernel on phase 11's two legs
-        for leg, c in counts11.items():
+    for r in rows + train_rows + [k1_av] + s3_rows:  # each kernel on phase 11's and 12's legs
+        for leg, c in list(counts11.items()) + list(counts12.items()):
             r[f"launches_{leg}"] = c[r["name"]]
     print(json.dumps({"kernels": rows + train_rows + [k1_av] + s3_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

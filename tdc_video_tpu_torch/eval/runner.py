@@ -9,15 +9,17 @@ tokenizer.  One video's features are cached under the caller's video_uid.
 An audio-visual model takes the clip's waveform (`wav`, 16 kHz mono) and
 the second of each frame (`frame_seconds`).  Serving options as in JAX:
 an int8 KV cache (`kv_quant`), s8 x s8 prefill (`act_quant`, with int8
-weights) and prompt-lookup speculative decoding (`spec_window`).  No
-batching.
+weights) and prompt-lookup speculative decoding (`spec_window`).  Several
+questions about one video go through the continuous-batching DecodeEngine
+(`answer_many`, serving/batching.py), and a conversation through one
+resident cache (`chat`, serving/session.py).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +33,7 @@ from ..data.images import device_preprocess, frame_bucket, pad_frames, process_f
 from ..data.preprocess import tokenizer_image_token
 from ..device import resolve_device, synchronize
 from ..media.io import window_audio
-from ..model import encode_audio, encode_frames
+from ..model import encode_audio, encode_frames, prepare_multimodal_from_features
 from ..ops.audio import second_groups
 from ..serving.generate import generate_encoded
 
@@ -130,6 +132,7 @@ class PredictorStats:
     decode_s: float = 0.0
     decode_steps: int = 0
     last_ids: List[int] = field(default_factory=list)
+    last_many_ids: List[List[int]] = field(default_factory=list)  # answer_many's raw tokens
 
 
 class TDCPredictor:
@@ -170,6 +173,7 @@ class TDCPredictor:
         self.spec_window = spec_window
         self.spec_ngram = spec_ngram
         self._feat_cache: Tuple[Any, Any] = (None, None)  # one video's features
+        self._engine_cache: Dict[Tuple, Any] = {}  # answer_many's engines by shape, LRU
         self.stats = PredictorStats()
 
     def encode_video(self, frames: np.ndarray, cache_key=None):
@@ -290,3 +294,122 @@ class TDCPredictor:
         st.prefill_s, st.decode_s = timings["prefill_s"], timings["decode_s"]
         st.decode_steps, st.last_ids = int(timings["decode_steps"]), ids
         return self.tok.decode(ids).strip()
+
+    # -- continuous batching --------------------------------------------------
+
+    def pack_prompt(self, frames: np.ndarray, question, wav: Optional[np.ndarray] = None,
+                    frame_seconds: Optional[np.ndarray] = None, video_uid: Optional[str] = None):
+        """The packed multimodal prompt of ONE question (`question` a string
+        or a (prompt, qformer_prompt) pair): prepare's template, encode
+        (cached under video_uid) and audio, then compression and splice,
+        cut to a multiple of 128 rows.  Returns (embeds [1, Lb, H],
+        attn_mask [1, Lb], prompt ids): what answer_many and ChatSession
+        build engine requests from."""
+        qf = None
+        if isinstance(question, tuple):
+            question, qf = question
+        req = self.prepare(frames, question, qf, wav, frame_seconds, video_uid=video_uid)
+        gen = {k: v for k, v in req["gen"].items() if k != "max_new_tokens"}
+        mm = prepare_multimodal_from_features(self.cfg, self.params, **gen)
+        Lb = int(np.ceil(max(int(mm["seq_len"][0]), 1) / 128) * 128)
+        return mm["embeds"][:, :Lb], mm["attn_mask"][:, :Lb], np.asarray(req["ids"], np.int32)
+
+    def chat(self, frames: np.ndarray, **kw):
+        """A multi-turn conversation over one video: the first ask() packs and
+        prefills the prompt, every later ask() extends the same KV cache by
+        its own tokens (serving/session.ChatSession)."""
+        from ..serving.session import ChatSession
+
+        return ChatSession(self, frames, **kw)
+
+    def _shared_prefix_len(self, prefixes) -> int:
+        """The longest common embed prefix of the packed prompts, capped one
+        below the shortest valid length.  Compared on the device, one scalar
+        read a pair."""
+        e0 = prefixes[0][0]
+        lim = int(prefixes[0][1].sum()) - 1
+        for e, m, _ in prefixes[1:]:
+            n = min(e0.shape[1], e.shape[1])
+            eq = (e0[:, :n] == e[:, :n]).all(dim=-1)[0]
+            # the first mismatch; the appended one makes a full match give n
+            ne = torch.cat([~eq, eq.new_ones((1,))])
+            lim = min(lim, int(m.sum()) - 1, int(torch.argmax(ne.to(torch.int8))))
+        return max(lim, 0)
+
+    def answer_many(
+        self,
+        frames: np.ndarray,
+        questions: Sequence,  # strings, or (prompt, qformer_prompt) pairs
+        wav: Optional[np.ndarray] = None,
+        frame_seconds: Optional[np.ndarray] = None,
+        max_new_tokens: Optional[int] = None,
+        video_uid: Optional[str] = None,
+        num_slots: int = 4,
+        kv_quant: Optional[str] = None,
+        prefix_share_threshold: int = 256,
+        prefill_chunk: int = 0,
+        on_tokens=None,  # callable(req, new_token_ids); req.uid is the question's index
+        temperature: float = 0.0,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        seed: int = 0,  # question i samples with seed + i
+    ) -> List[str]:
+        """Answer several questions about ONE video through the
+        continuous-batching DecodeEngine: the towers run once (video_uid's
+        feature cache), each question compresses and prefills into its own
+        slot, and all decodes share one lockstep loop.  When the packed
+        prompts share at least prefix_share_threshold leading rows (the
+        template head and the video tokens, with an unconditioned
+        Q-Former), that prefix is prefilled once and each question extends
+        only its suffix."""
+        from ..serving.batching import DecodeEngine, Request
+
+        cfg = self.cfg
+        mnt = max_new_tokens or self.max_new_tokens
+        prefixes = []
+        for q in questions:
+            embeds, amask, pids = self.pack_prompt(frames, q, wav=wav, frame_seconds=frame_seconds,
+                                                   video_uid=video_uid)
+            prefixes.append((embeds, amask.cpu().numpy(), pids))
+        shared_p = self._shared_prefix_len(prefixes) if len(prefixes) > 1 else 0
+        if shared_p < prefix_share_threshold:
+            shared_p = 0
+        spec_window = self.spec_window
+        # keep the whole mnt budget beside the window - 1 rows of verify headroom
+        cap_pad = mnt + max(spec_window - 1, 0)
+        capacity = int(np.ceil((max(p[0].shape[1] for p in prefixes) + cap_pad) / 128) * 128)
+        slots = min(num_slots, len(prefixes))
+        kvq = kv_quant or self.kv_quant
+        ekey = (slots, capacity, kvq, prefill_chunk, spec_window)
+        eng = self._engine_cache.pop(ekey, None)
+        if eng is None:
+            eng = DecodeEngine(cfg, self.params, num_slots=slots, capacity=capacity,
+                               attn_impl=self.attn_impl, kv_quant=kvq, act_quant=self.act_quant,
+                               spec_window=spec_window, spec_ngram=self.spec_ngram,
+                               prefill_chunk=prefill_chunk, on_tokens=on_tokens,
+                               device=self.device)
+        else:
+            eng.reset(on_tokens=on_tokens)
+        # LRU: the 2 most recent shapes stay (each holds a slots x capacity cache)
+        self._engine_cache[ekey] = eng
+        while len(self._engine_cache) > 2:
+            self._engine_cache.pop(next(iter(self._engine_cache)))
+        for i, (embeds, mask, pids) in enumerate(prefixes):
+            eng.submit(Request(embeds=embeds, attn_mask=mask, max_new_tokens=mnt, uid=i,
+                               prompt_ids=pids, prefix_key="video" if shared_p else None,
+                               prefix_len=shared_p, temperature=temperature, top_k=top_k,
+                               top_p=top_p, seed=seed + i))
+        done = eng.run()
+        if eng.on_tokens_errors:
+            # the engine isolates callback errors so that decoding finishes;
+            # a broken stream consumer is still reported
+            import warnings
+
+            warnings.warn(f"{len(eng.on_tokens_errors)} on_tokens callback error(s) during "
+                          f"answer_many; first: {eng.on_tokens_errors[0]!r}", RuntimeWarning,
+                          stacklevel=2)
+        by_uid = {r.uid: r for r in done}
+        self.stats.last_many_ids = [list(by_uid[i].tokens) for i in range(len(prefixes))]
+        return [self.tok.decode(_trim_generated(by_uid[i].tokens, cfg.lm)).strip()
+                for i in range(len(prefixes))]
+

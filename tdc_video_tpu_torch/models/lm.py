@@ -12,7 +12,9 @@ dict), which saves a copy of the whole cache per step.
 int8 weights (models/quant.py) run weight-only, or with act_quant=True
 (prefill, lm_forward) as s8 x s8 projections.  Speculative decoding:
 verify_step writes a K-token window above `lengths` and commit_verified
-flips the accepted slots valid.
+flips the accepted slots valid; extend_prefill forwards such a window and
+commits it (shared-prefix and chunked admission), and decode_step's
+`active` mask freezes idle engine slots.
 
 Training: `lm_forward` and `lm_loss` (chunked cross-entropy), with
 `remat=True` checkpointing each layer (torch.utils.checkpoint in place of
@@ -408,8 +410,12 @@ def decode_step(
     cache: Dict,
     attn_impl: str = "xla",
     dtype=torch.bfloat16,
+    active: Optional[torch.Tensor] = None,  # [B] bool; inactive slots keep mask and lengths
 ) -> Tuple[torch.Tensor, Dict]:
-    """One autoregressive step; writes at per-sample `lengths`, returns logits [B, V]."""
+    """One autoregressive step; writes at per-sample `lengths`, returns logits [B, V].
+    `active` (continuous batching, serving/batching.py): inactive slots still
+    run through the batched products, and their K/V land on their next,
+    still-masked slot, but their mask and lengths are left as they were."""
     B = token_embeds.shape[0]
     S = cache["k"].shape[2]
     dev = token_embeds.device
@@ -422,8 +428,12 @@ def decode_step(
     hidden, cache = lm_backbone(cfg, params, token_embeds, positions, step_mask[:, None, None, :],
                                 cache=cache, write_pos=write_pos, attn_impl=attn_impl,
                                 dtype=dtype)
-    cache["mask"] = step_mask
-    cache["lengths"] = lengths + 1
+    if active is None:
+        cache["mask"] = step_mask
+        cache["lengths"] = lengths + 1
+    else:
+        cache["mask"] = torch.where(active[:, None], step_mask, cache["mask"])
+        cache["lengths"] = lengths + active.to(lengths.dtype)
     return lm_head(cfg, params, hidden)[:, 0], cache
 
 
@@ -475,3 +485,26 @@ def commit_verified(cache: Dict, accept: torch.Tensor) -> Dict:
     cache["mask"] = cache["mask"] | new
     cache["lengths"] = lengths + accept.to(lengths.dtype)
     return cache
+
+
+def extend_prefill(
+    cfg: LMConfig,
+    params: Params,
+    token_embeds: torch.Tensor,  # [B, K, H] right-padded suffix
+    n_valid: torch.Tensor,  # [B] true suffix lengths (<= K)
+    cache: Dict,
+    attn_impl: str = "xla",
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, Dict]:
+    """Continue a prefill from the cache tail: one forward of a K-token
+    suffix over an already-prefilled cache (verify_step's window), then
+    commit exactly `n_valid` tokens.  The committed K/V and the next-token
+    logits are those of prefilling prefix + suffix in one shot: the
+    shared-prefix and chunked admission of serving/batching.py.  Writes the
+    cache in place (copy a donor first to keep it).  Needs lengths + K <=
+    capacity.  Returns (logits [B, V] at the last valid suffix token,
+    cache)."""
+    hidden, cache = _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype)
+    idx = (n_valid - 1).clamp_min(0).long()
+    last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
+    return lm_head(cfg, params, last)[:, 0], commit_verified(cache, n_valid)

@@ -1,4 +1,4 @@
-"""Prompt-lookup speculative decoding, greedy (port of the greedy path of
+"""Prompt-lookup speculative decoding (port of
 tdc_video_tpu/serving/speculative.py).
 
 Drafts come from n-gram continuation lookup in the token history (prompt +
@@ -12,8 +12,9 @@ with no agreeing draft still emits one token.
 
 The loop runs on the host, as the port's plain loop does, and reads its
 stop condition back every DONE_CHECK_EVERY verify steps (steps after every
-row is done emit nothing).  Sampled acceptance is not ported: the port
-decodes greedily.
+row is done emit nothing).  The loop is greedy; sampled acceptance
+(accept_and_emit_sampled, rejection sampling with deterministic drafts)
+serves the engine's speculative chunks (serving/batching.py).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 
 from ..config import TDCConfig
 from ..models import lm as lm_mod
-from .generate import DONE_CHECK_EVERY
+from . import prng
+from .generate import DONE_CHECK_EVERY, _softmax, filter_rows
 
 Params = Any
 
@@ -78,6 +80,68 @@ def accept_and_emit(
     m = torch.minimum(torch.minimum(m_raw, first_eos + 1), remaining)
     m = torch.where(done, 0, m).to(torch.int32)
     return m, first_eos < m
+
+
+def accept_and_emit_sampled(
+    logits: torch.Tensor,  # [B, K, V] verify_step logits
+    draft: torch.Tensor,  # [B, K-1] proposed draft tokens
+    eos: torch.Tensor,  # [E]
+    remaining: torch.Tensor,  # [B]
+    done: torch.Tensor,  # [B]
+    temp: torch.Tensor,  # [B] f32; <= 0 rows take the exact greedy rule
+    topk: torch.Tensor,  # [B]
+    topp: torch.Tensor,  # [B] f32
+    seed: torch.Tensor,  # [B]
+    gidx: torch.Tensor,  # [B] tokens emitted so far (counter-mode index)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative sampling with deterministic (prompt-lookup) drafts: draft
+    d_j is accepted with probability p_j(d_j) under the warped target
+    distribution (generate.filter_rows); at the first rejection the token is
+    drawn from p_j with d_j excluded, and after a fully accepted window the
+    bonus token from p_{K-1}, so every emitted token is p-distributed.
+    Greedy rows (temp <= 0) follow accept_and_emit's rule exactly.
+
+    Keys are counter-mode: the token at index gidx+j draws from
+    fold_in(fold_in(PRNGKey(0), seed), gidx+j), substream 1 for the accept
+    uniform and substream 2 for the resample, as JAX's.  Returns (emit
+    [B, K] tokens, m [B] emit counts, eos_emitted [B])."""
+    B, K, V = logits.shape
+    dev = logits.device
+    x = logits.float()
+    greedy = torch.argmax(x, dim=-1).to(torch.int32)  # [B, K]
+    xw = filter_rows(x.reshape(B * K, V), temp.repeat_interleave(K), topk.repeat_interleave(K),
+                     topp.repeat_interleave(K)).reshape(B, K, V)
+    probs = _softmax(xw)
+    j_idx = torch.arange(K, device=dev)
+    base = prng.fold_in(prng.PRNGKey(0, device=dev), seed)  # [B, 2]
+    keys = prng.fold_in(base[:, None, :], gidx[:, None].long() + j_idx[None])  # [B, K, 2]
+    u = prng.uniform(prng.fold_in(keys, 1))  # [B, K]
+    d = draft.long()
+    p_d = torch.take_along_dim(probs[:, :-1], d[..., None], dim=-1)[..., 0]
+    sampled_row = (temp > 0.0)[:, None]
+    accept = torch.where(sampled_row, u[:, :-1] < p_d, greedy[:, :-1] == draft)
+    a = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)  # [B] 0..K-1
+    # final-token candidates: position j < K-1 resamples with its rejected
+    # draft masked out (the residual), position K-1 is the bonus draw
+    masked = xw[:, :-1].scatter(-1, d[..., None], float("-inf"))
+    cand = torch.cat([masked, xw[:, -1:]], dim=1)  # [B, K, V]
+    r = prng.categorical(prng.fold_in(keys, 2), cand).to(torch.int32)  # [B, K]
+    ai = a[:, None].long()
+    final = torch.where(temp > 0.0, torch.take_along_dim(r, ai, dim=1)[:, 0],
+                        torch.take_along_dim(greedy, ai, dim=1)[:, 0])
+    jj = j_idx[None]
+    dpad = torch.cat([draft, draft[:, -1:]], dim=1).to(torch.int32)
+    zero = torch.zeros_like(greedy)
+    e = torch.where(jj < a[:, None], dpad, torch.where(jj == a[:, None], final[:, None], zero))
+    # greedy rows emit the argmax (equal to the draft where it was accepted)
+    e = torch.where(sampled_row, e, torch.where(jj <= a[:, None], greedy, zero))
+    m_raw = a + 1
+    is_eos = (e[..., None] == eos[None, None, :]).any(dim=-1)
+    eos_hit = is_eos & (jj < m_raw[:, None])
+    first_eos = torch.where(eos_hit, jj, K).amin(dim=1)
+    m = torch.minimum(torch.minimum(m_raw, first_eos + 1), remaining)
+    m = torch.where(done, 0, m).to(torch.int32)
+    return e, m, first_eos < m
 
 
 def pld_decode_loop(

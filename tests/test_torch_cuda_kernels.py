@@ -446,3 +446,26 @@ def test_sdpa_int8kv_on_card(cuda):
         out = sdpa_int8kv(*(t.cuda() for t in (q.to(dtype), kq, ks, vq, vs, mask)))
         err = float((out.float().cpu() - ref).abs().max())
         assert err <= tol * max(1.0, float(ref.abs().max()))
+
+
+def test_sample_rows_card_equals_cpu(cuda):
+    """The engine's sampler on the card: the threefry bits of every row's
+    counter-mode key bitwise equal to the CPU's at the Llama-3 vocabulary
+    (128,256 lanes a row), and the same tokens from the same logits, greedy
+    and sampled rows mixed."""
+    from tdc_video_tpu_torch.serving import generate as tgen
+    from tdc_video_tpu_torch.serving import prng
+
+    rng = np.random.default_rng(0)
+    V = 128256
+    x = torch.from_numpy(rng.normal(0, 2, (4, V)).astype(np.float32))
+    rows = (torch.tensor([0.0, 0.2, 1.0, 0.7]), torch.tensor([50, 50, 0, 20], dtype=torch.int32),
+            torch.tensor([1.0, 1.0, 0.9, 0.8]), torch.tensor([0, 1, 2, 3], dtype=torch.int32),
+            torch.tensor([0, 5, 17, 2], dtype=torch.int32))
+    keys = tgen.row_keys(rows[3], rows[4])
+    assert torch.equal(tgen.row_keys(rows[3].cuda(), rows[4].cuda()).cpu(), keys)
+    assert torch.equal(prng.random_bits(keys.cuda(), (V,)).cpu(), prng.random_bits(keys, (V,)))
+    assert torch.equal(prng.uniform(keys.cuda(), (V,)).cpu(), prng.uniform(keys, (V,)))
+    ref = tgen.sample_rows(x, *rows)
+    out = tgen.sample_rows(x.cuda(), *(r.cuda() for r in rows))
+    assert torch.equal(out.cpu(), ref)

@@ -34,7 +34,8 @@ def test_port_and_smoke_script_import_no_jax():
         # the serving options' modules (quantization, speculative decoding,
         # profiling) among them
         for m in ("models.quant", "serving.speculative", "utils.profiling", "train.lora",
-                  "train.dataset", "train.runner_utils", "train.run"):
+                  "train.dataset", "train.runner_utils", "train.run", "serving.prng",
+                  "serving.batching", "serving.session", "cli.serve"):
             assert "tdc_video_tpu_torch." + m in names, m
         print(len(names))
         """
