@@ -59,11 +59,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    same model on the default host preprocessing path (its encode time beside
    the device path's; where PIL is installed, the port's copy of its bicubic
    resize held to it bit for bit on every frame at both tower sizes and
-   timed beside it); and cli/demo.run on a 16 s clip from media.io.encode_test_video,
-   decoded at 1 fps, answering on the card with K1-K3 launched.  Whether
-   the machine has FFmpeg's libraries is asked of pkg-config before the
-   phase: without them the clip leg alone is skipped, with pkg-config's
-   message on its own line;
+   timed beside it); eval/harness.run as the CLI runs it (bf16 compute,
+   host preprocessing, --batch_slots 2) on the checkpoint and phase 13's
+   MVBench tree, K1-K3 launched (needs no FFmpeg); and cli/demo.run on a
+   16 s clip from media.io.encode_test_video, decoded at 1 fps, answering
+   on the card with K1-K3 launched, then cli/serve and an activation_diff
+   dump of the clip with its exact self-diff.  Whether the machine has
+   FFmpeg's libraries is asked of pkg-config before the phase: without them
+   the clip leg alone is skipped, with pkg-config's message on its own line;
 9. audio-visual QA: TDC-Qwen2-7B with audio (BEATs base, 12 layers at 768)
    at full width and depth, random bf16 weights from the seed, answering
    the phase-3 question about a 96 s clip as the demo sends it: 96 frames
@@ -161,6 +164,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Every kernel's entry gets its launches in (a) and over the 3 turns of
    (e) (`launches_serve`, `launches_chat`).  Phase 8's clip leg also runs
    cli/serve (2 questions, 2 slots) on its checkpoint and clip.
+13. evaluation and streaming, run right after phase 12 on phase 3's model,
+   one JSON line a leg with the card: (a) eval/harness.run_benchmark over a
+   synthetic MVBench tree (the episodic-reasoning task: two directories of
+   48 360x640 JPEGs at 3 fps, 3 and 2 questions of 4 candidates, bounds of
+   equal length cutting 16 frames at 1 fps) through a TDCPredictor with
+   build_predictor's defaults (host preprocessing, 5 new tokens), one
+   question at a time and then grouped (4 slots): the records identical or
+   parting on a near tie (phase 12's rule, or a top-2 gap within twice the
+   largest logit difference between the one-at-a-time stream through K1
+   and through sdpa at that position, which must be within phase 4's
+   bound: grouped, each question's suffix, ~250 rows here, extends through
+   sdpa), the metrics equal when no record parted, the log gone
+   and the result files written, launches exactly K1 28 a question (one at
+   a time) or 28 a video (grouped: one prefix prefill), K2 40 and K3 27 a
+   video (each encoded once); printed: the walls, questions/s, seconds per
+   video and the accuracy (meaningless on random weights); (c)
+   serving/streaming.StreamingEncoder over 128 frames in chunks of 32 with
+   device preprocessing (a clip from media.io.encode_test_video where FFmpeg
+   exists, else synth_frames through the smoke's own in-memory stand-in for
+   media.io.decode_video_range, said in a line), after one warm stream:
+   StreamStats (video-sec/sec), launches exactly K2 4 x 40, K3 4 x 27, K1 0,
+   the features within 1e-2 of a monolithic encode_frames of the same
+   frames (max abs over max abs), and n_visual and the tokens of
+   prepare_visual equal within 1e-2 unless a segment cut moved, which it
+   may only where the two runs' adjacent-frame similarities differ by at
+   least half the gap between the cut and the next candidate (printed).
+   Every kernel's entry gets its launches in (a), grouped and one at a
+   time, and in (c) (`launches_eval`, `launches_eval_solo`,
+   `launches_stream`).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -170,6 +202,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
@@ -867,19 +900,27 @@ def _decode_step_ms(cfg, params, gen, **kw) -> float:
                                               dtype=cfg.dtype), reps=20, rounds=5)
 
 
-def _gap_at(cfg, params, logits, cache, ids, p, sampling=None):
-    """Top-2 gap at position p of the stream `ids`, fed from (logits,
-    cache) of its prefill: of the raw logits when greedy; of the filtered
-    and gumbel-perturbed logits of token p's key when sampled."""
+def _logits_at(cfg, params, logits, cache, ids, p, impl="flash"):
+    """The logits [1, V] at position p of the stream `ids`, fed from
+    (logits, cache) of its prefill through decode steps with `impl`."""
     from tdc_video_tpu_torch.models import lm as lm_mod
-    from tdc_video_tpu_torch.serving import generate as gen_mod
-    from tdc_video_tpu_torch.serving import prng
 
     for tok in ids[:p]:
         emb = lm_mod.embed_tokens(cfg.lm, params["lm"], torch.tensor([[tok]], device=DEVICE),
                                   cfg.dtype)
-        logits, cache = lm_mod.decode_step(cfg.lm, params["lm"], emb, cache, attn_impl="flash",
+        logits, cache = lm_mod.decode_step(cfg.lm, params["lm"], emb, cache, attn_impl=impl,
                                            dtype=cfg.dtype)
+    return logits
+
+
+def _gap_at(cfg, params, logits, cache, ids, p, sampling=None):
+    """Top-2 gap at position p of the stream `ids`, fed from (logits,
+    cache) of its prefill: of the raw logits when greedy; of the filtered
+    and gumbel-perturbed logits of token p's key when sampled."""
+    from tdc_video_tpu_torch.serving import generate as gen_mod
+    from tdc_video_tpu_torch.serving import prng
+
+    logits = _logits_at(cfg, params, logits, cache, ids, p)
     x = logits[0].float()
     if sampling:
         one = lambda v, dt: torch.tensor([v], dtype=dt, device=DEVICE)  # noqa: E731
@@ -1097,7 +1138,7 @@ def _trimmed(cfg, ids):
     return _trim_generated(ids, cfg.lm)
 
 
-def _hold_tokens(tag, cfg, params, got, want, prefill, sampling=None):
+def _hold_tokens(tag, cfg, params, got, want, prefill, sampling=None, phase=12):
     """got equal to want, or parting first on a near tie of want's own run:
     a top-2 gap under SPEC_TIE_GAP (over the temperature for sampled rows,
     whose logits it divides).  `prefill()` gives want's (logits, cache).
@@ -1108,10 +1149,10 @@ def _hold_tokens(tag, cfg, params, got, want, prefill, sampling=None):
     logits, cache = prefill()
     gap = _gap_at(cfg, params, logits, cache, want, p, sampling)
     bound = SPEC_TIE_GAP / (sampling["temperature"] if sampling else 1.0)
-    log(f"[12] {tag}: parts at position {p} where the reference's top-2 gap is {gap:.4e} "
+    log(f"[{phase}] {tag}: parts at position {p} where the reference's top-2 gap is {gap:.4e} "
         f"(near tie below {bound:.1e})")
     if not gap < bound:
-        raise AssertionError(f"[12] {tag}: {got} differs from {want} off a near tie")
+        raise AssertionError(f"[{phase}] {tag}: {got} differs from {want} off a near tie")
     return p, gap
 
 
@@ -1327,6 +1368,273 @@ def phase_multi_serving(cfg, params, pred, frames):
         raise AssertionError(f"[12e] turns 2-3 ran the towers: {later}")
     log(f"[12] phase 12 in {time.perf_counter() - t_phase:.1f} s")
     return counts_a, counts_chat
+
+
+# ---------------------------------------------------------------------------
+# Phase 13
+# ---------------------------------------------------------------------------
+
+# the MVBench tree of leg (a) and of phase 8's harness leg: the episodic-
+# reasoning task (frame directories of 3-fps JPEGs), two directories of 48
+# frames (16 s); the bounds cut 46 frames of each, 16 at 1 fps
+MVB_FRAMES = 48
+MVB_VIDEOS = (
+    ("clip0", (0.0, 15.0), ("What happens first?", "Where is the bright square at the end?",
+                            "How often does the background change?")),
+    ("clip1", (0.5, 15.5), ("What colour is the square?", "Which way does the square move?")),
+)
+MVB_CANDIDATES = ("it moves right", "it moves left", "it stays still", "it disappears")
+EVAL_SLOTS = 4
+STREAM_FRAMES, STREAM_CHUNK = 128, 32
+# chunked vs monolithic encode: features and tokens within 1e-2 of their
+# max (the JAX test's 1e-2); a segment cut may move only where the two
+# runs' adjacent-frame similarities differ by at least half the gap
+# between the cut and the next candidate
+STREAM_REL = 1e-2
+
+
+def write_mvbench_tree(root: str) -> str:
+    """An MVBench data tree under root (json/ and video/ as load_mvbench
+    reads them), frames from synth_frames; returns its path."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "json"))
+    rows = []
+    for d, (name, bound, questions) in enumerate(MVB_VIDEOS):
+        vdir = os.path.join(root, "video", "tvqa", "frames_fps3_hq", name)
+        os.makedirs(vdir)
+        for k, f in enumerate(synth_frames(SEED + 1 + d, MVB_FRAMES)):
+            Image.fromarray(f).save(os.path.join(vdir, f"{k:05d}.jpg"), quality=90)
+        rows += [{"video": name, "question": q, "candidates": list(MVB_CANDIDATES),
+                  "answer": MVB_CANDIDATES[i % 4], "start": bound[0], "end": bound[1]}
+                 for i, q in enumerate(questions)]
+    with open(os.path.join(root, "json", "episodic_reasoning.json"), "w") as fh:
+        json.dump(rows, fh)
+    return root
+
+
+def _hold_paths(tag, cfg, params, got, want, prefill):
+    """got (grouped: the shared prefix through K1, each question's suffix
+    extended through sdpa, as in JAX) equal to want (one at a time: the
+    whole prompt through K1), or parting first on a near tie of want's run:
+    a top-2 gap under SPEC_TIE_GAP (phase 12's rule), or within the two
+    attention paths' own difference there: at most twice the largest
+    difference of a logit between want's stream through K1 and through
+    sdpa ("xla") at that position, itself within phase 4's LOGIT_ATOL.
+    `prefill(impl)` gives want's (logits, cache).  Returns None or
+    (position, gap, path difference)."""
+    p = _first_part(got, want)
+    if p is None:
+        return None
+    lf, lx = (_logits_at(cfg, params, *prefill(impl), want, p, impl)[0].float()
+              for impl in ("flash", "xla"))
+    top2 = torch.topk(lf, 2).values
+    gap, diff = float(top2[0] - top2[1]), float((lf - lx).abs().max())
+    log(f"[13] {tag}: parts at position {p} where the reference's top-2 gap is {gap:.4e}; its "
+        f"logits through K1 and sdpa differ there by up to {diff:.4e}")
+    if not (gap < SPEC_TIE_GAP or (gap <= 2 * diff and diff <= LOGIT_ATOL)):
+        raise AssertionError(f"[13] {tag}: {got} differs from {want} off a near tie")
+    return p, gap, diff
+
+
+def _eval_run(pred, data, out, slots):
+    """One run_benchmark over the MVBench tree with the launch counters set
+    to 0 just before and read just after: (metrics, records, wall s,
+    launches)."""
+    from tdc_video_tpu_torch.eval import harness
+    from tdc_video_tpu_torch.eval.datasets import load_mvbench
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    samples = load_mvbench(data)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    metrics = harness.run_benchmark("mvbench", pred, samples, out_dir=out, batch_slots=slots)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fa.launches)
+    files = os.listdir(os.path.join(out, "MVBENCH"))
+    if "wal-host0.jsonl" in files or not any(f.startswith("result-") for f in files):
+        raise AssertionError(f"[13a] result files {files}: the log left or no result written")
+    (outputs,) = [f for f in files if f.startswith("outputs-")]
+    with open(os.path.join(out, "MVBENCH", outputs)) as fh:
+        return metrics, json.load(fh), wall, counts
+
+
+def _eval_legs(cfg, params, tmp):
+    """(a): run_benchmark one question at a time, then grouped; returns the
+    launch counts of both runs."""
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    data = write_mvbench_tree(os.path.join(tmp, "MVBench"))
+    # build_predictor's defaults: host preprocessing, 5 new tokens
+    pred = TDCPredictor(cfg, params, ByteTokenizer(), bert_tokenizer=None, max_new_tokens=5,
+                        max_eval_frames=1000, device=torch.device(DEVICE))
+    seen = {}  # question -> its solo and grouped ids, and what prefills it
+    real_answer, real_many = pred.answer, pred.answer_many
+
+    def answer(frames, question, qformer_prompt=None, **kw):
+        out = real_answer(frames, question, qformer_prompt=qformer_prompt, **kw)
+        seen[qformer_prompt] = dict(solo=list(pred.stats.last_ids), frames=frames,
+                                    prompt=question, kw=kw)
+        return out
+
+    def answer_many(frames, questions, **kw):
+        out = real_many(frames, questions, **kw)
+        for (_, q), ids in zip(questions, pred.stats.last_many_ids):
+            seen[q]["grouped"] = list(ids)
+        return out
+
+    pred.answer, pred.answer_many = answer, answer_many
+    runs = {mode: _eval_run(pred, data, os.path.join(tmp, mode), slots)
+            for mode, slots in (("one_at_a_time", 0), ("grouped", EVAL_SLOTS))}
+    n_q = sum(len(q) for _, _, q in MVB_VIDEOS)
+    n_v = len(MVB_VIDEOS)
+    L, D, S = cfg.lm.num_layers, cfg.dino.num_layers, cfg.siglip.num_layers
+    none = {"full_attention": 0, "flash_dq_kernel": 0, "flash_dkv_kernel": 0}
+    # each video encoded once (every DINOv2 and SigLIP layer); K1 in each
+    # question's prefill, or grouped only in each video's one prefix prefill
+    # (the suffix extends take sdpa)
+    expected = {"one_at_a_time": {"flash_kernel": L * n_q, "full_attention_nhd": D * n_v,
+                                  "full_attention_nhd_seqq": S * n_v, **none},
+                "grouped": {"flash_kernel": L * n_v, "full_attention_nhd": D * n_v,
+                            "full_attention_nhd_seqq": S * n_v, **none}}
+
+    def prefill(q, e):
+        """The one-at-a-time answer's prefill (logits, cache) through an
+        attention implementation."""
+        def run(impl):
+            gen = pred.prepare(e["frames"], e["prompt"], qformer_prompt=q,
+                               frame_seconds=e["kw"]["frame_seconds"], max_new_tokens=5,
+                               video_uid=e["kw"]["video_uid"])["gen"]
+            return prefill_encoded(cfg, params, **gen, attn_impl=impl)
+        return run
+
+    ties = {q: _hold_paths(f"(a) grouped vs one at a time: {q!r}", cfg, params,
+                           _trimmed(cfg, e["grouped"]), _trimmed(cfg, e["solo"]), prefill(q, e))
+            for q, e in seen.items()}
+    (m_s, r_s, wall_s, c_s), (m_g, r_g, wall_g, c_g) = runs.values()
+    differ = [a["question"] for a, b in zip(r_s, r_g) if a != b]
+    if len(r_s) != n_q or len(r_g) != n_q or any(ties[q] is None for q in differ):
+        raise AssertionError(f"[13a] records differ off a near tie: {differ}")
+    if not differ and m_s != m_g:
+        raise AssertionError(f"[13a] metrics differ: {m_s} vs {m_g}")
+    _leg(13, "a_run_benchmark", benchmark="mvbench (episodic reasoning, frame directories)",
+         videos=n_v, questions=n_q, frames_per_video=16, new_tokens=5, slots=EVAL_SLOTS,
+         wall_s={"one_at_a_time": wall_s, "grouped": wall_g},
+         questions_per_s={"one_at_a_time": n_q / wall_s, "grouped": n_q / wall_g},
+         seconds_per_video={"one_at_a_time": wall_s / n_v, "grouped": wall_g / n_v},
+         accuracy={"one_at_a_time": m_s, "grouped": m_g},
+         accuracy_note="random weights: the accuracy means nothing",
+         records_differ=differ, near_ties={q: t for q, t in ties.items() if t},
+         launches={"one_at_a_time": c_s, "grouped": c_g}, launches_expected=expected,
+         ids={q: e["grouped"] for q, e in seen.items()})
+    for mode, got in (("one_at_a_time", c_s), ("grouped", c_g)):
+        if got != expected[mode]:
+            raise AssertionError(f"[13a] {mode} launches {got}, expected {expected[mode]}")
+    return c_s, c_g
+
+
+def _stream_leg(cfg, params, tmp, has_ffmpeg):
+    """(c): StreamingEncoder over 128 frames in chunks of 32, device
+    preprocessing, against one monolithic encode + compress of the same
+    frames.  Returns the launch counts of the measured stream."""
+    from tdc_video_tpu_torch.data.images import device_preprocess
+    from tdc_video_tpu_torch.media import io as media_io
+    from tdc_video_tpu_torch.model import encode_frames, prepare_visual
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.ops.segment import adjacent_cosine_similarity, segment_boundaries
+    from tdc_video_tpu_torch.serving.streaming import StreamingEncoder
+
+    dev = torch.device(DEVICE)
+    real_range = media_io.decode_video_range
+    if has_ffmpeg:
+        path = os.path.join(tmp, "stream.mp4")
+        media_io.encode_test_video(path, w=FRAME_W, h=FRAME_H, fps=5.0, n_frames=5 * STREAM_FRAMES)
+        frames, _ = media_io.decode_video(path, fps=1.0, max_frames=STREAM_FRAMES)
+        source = "media.io.encode_test_video clip, decoded at 1 fps"
+    else:
+        path, frames = "in-memory", synth_frames(SEED, STREAM_FRAMES)
+
+        def decode_range(_path, k0, k1, fps=1.0, **kw):
+            k1 = min(k1, STREAM_FRAMES)
+            return frames[k0:k1].copy(), np.arange(k0, k1, dtype=np.float64)
+
+        # the smoke's own stand-in for the decoder, this leg only
+        media_io.decode_video_range = decode_range
+        source = ("in-memory synth_frames standing in for media.io.decode_video_range "
+                  "(no FFmpeg libraries on this machine)")
+        log(f"[13] (c) source: {source}")
+    try:
+        enc = StreamingEncoder(cfg, params, chunk_frames=STREAM_CHUNK, max_frames=1000,
+                               device_prep=True, device=dev)
+        enc.compress(*enc.encode_stream(path)[:3])  # the first stream pays allocator growth
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        ff, df, mask, ts, stats = enc.encode_stream(path)
+        visual, n_vis, compress_s = enc.compress(ff, df, mask)
+        counts = dict(fa.launches)
+    finally:
+        media_io.decode_video_range = real_range
+    n = len(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sig, dino = device_preprocess(torch.from_numpy(frames).to(dev), cfg)
+    mff, mdf = encode_frames(cfg, params, sig.to(cfg.dtype), dino.to(cfg.dtype), attn_impl="flash")
+    q0 = torch.zeros(8, dtype=torch.int64, device=dev)
+    mvis, m_n = prepare_visual(cfg, params, mff, mdf, mask, q0, q0.bool(), max_visual_len=4096)
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    n_vis, m_n = int(n_vis), int(m_n)
+    feats_rel = _rel(ff, mff)
+    k = cfg.compression.max_num_segments
+    cuts = [segment_boundaries(x, mask, k) for x in (df, mdf)]
+    sims = [adjacent_cosine_similarity(x, mask) for x in (df, mdf)]
+    noise = float((sims[0] - sims[1]).abs().max())
+    srt = torch.sort(sims[1]).values
+    gap = float(srt[k] - srt[k - 1]) if len(srt) > k else float("inf")
+    same_cuts = bool(torch.equal(*cuts))
+    tokens_rel = _rel(visual[:n_vis], mvis[:m_n]) if same_cuts and n_vis == m_n else None
+    enc_compress = n / (stats.wall_s + compress_s)
+    expected = {"flash_kernel": 0, "full_attention_nhd": cfg.dino.num_layers * n // STREAM_CHUNK,
+                "full_attention_nhd_seqq": cfg.siglip.num_layers * n // STREAM_CHUNK,
+                "full_attention": 0, "flash_dq_kernel": 0, "flash_dkv_kernel": 0}
+    _leg(13, "c_streaming", source=source, frames=n, frame_hw=list(frames.shape[1:3]),
+         chunk_frames=STREAM_CHUNK, summary=stats.summary(), stats=dataclasses.asdict(stats),
+         compress_s=compress_s, encode_compress_video_sec_per_sec=enc_compress,
+         monolithic_encode_compress_s=mono_s, monolithic_video_sec_per_sec=n / mono_s,
+         n_visual=n_vis, n_visual_monolithic=m_n, feats_rel=feats_rel, tokens_rel=tokens_rel,
+         same_cuts=same_cuts, similarity_noise=noise, cut_gap=gap, launches=counts,
+         launches_expected=expected)
+    if stats.frames != n or ff.shape[0] != n or len(ts) != n:
+        raise AssertionError(f"[13c] {stats.frames} frames streamed, {ff.shape[0]} encoded of {n}")
+    if counts != expected:
+        raise AssertionError(f"[13c] launches {counts}, expected {expected}")
+    if not feats_rel <= STREAM_REL:
+        raise AssertionError(f"[13c] chunked features {feats_rel:.3e} from monolithic")
+    if same_cuts:
+        if n_vis != m_n or not tokens_rel <= STREAM_REL:
+            raise AssertionError(f"[13c] n_visual {n_vis} vs {m_n}, tokens {tokens_rel}")
+    else:
+        log(f"[13] (c) a segment cut moved: the cut's gap {gap:.3e} to the next candidate, "
+            f"the runs' similarities differ by up to {noise:.3e}")
+        if not (gap <= 2 * noise and noise <= STREAM_REL):
+            raise AssertionError("[13c] a segment cut moved off a near tie")
+    return counts
+
+
+def phase_eval_stream(cfg, params, has_ffmpeg: bool):
+    """Phase 13: the MVBench-style benchmark through run_benchmark, one
+    question at a time and grouped (a), and streaming ingestion (c), on
+    phase 3's model (module docstring).  Returns {"eval", "eval_solo",
+    "stream"}: launch counts."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tdc_eval_") as tmp:
+        c_solo, c_grouped = _eval_legs(cfg, params, tmp)
+        c_stream = _stream_leg(cfg, params, tmp, has_ffmpeg)
+    log(f"[13] phase 13 in {time.perf_counter() - t_phase:.1f} s; {card()}")
+    return {"eval": c_grouped, "eval_solo": c_solo, "stream": c_stream}
 
 
 # ---------------------------------------------------------------------------
@@ -1720,12 +2028,47 @@ def phase_checkpoint(has_ffmpeg: bool, ffmpeg_msg: str):
     with tempfile.TemporaryDirectory(prefix="tdc_ckpt_") as tmp:
         path = os.path.join(tmp, "TDC-Llama3.2-3B-cut")
         counts = _round_trip_and_host_path(cfg, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _harness_cli(path, tmp)
         if not has_ffmpeg:
-            log(f"[8] clip leg (cli/demo and cli/serve) skipped: pkg-config finds no FFmpeg "
-                f"libraries on this machine: "
+            log(f"[8] clip leg (cli/demo, cli/serve and the activation_diff dump) skipped: "
+                f"pkg-config finds no FFmpeg libraries on this machine: "
                 f"{' | '.join(ffmpeg_msg.splitlines())}")
             return counts, None
         return counts, _demo_clip(path, os.path.join(tmp, "clip.mp4"))
+
+
+def _harness_cli(ckpt, tmp):
+    """eval/harness.run as the CLI runs it (bf16 compute, host preprocessing,
+    --batch_slots 2) on the checkpoint and phase 13's MVBench tree, with the
+    launch counters set to 0 just before and read just after."""
+    from tdc_video_tpu_torch.eval import harness
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    data = write_mvbench_tree(os.path.join(tmp, "MVBench"))
+    out_dir = os.path.join(tmp, "results")
+    args = harness.parse_args(["mvbench", "--model_path", ckpt, "--data_path", data,
+                               "--bert_tokenizer", "", "--batch_slots", "2", "--out_dir", out_dir,
+                               "--device", DEVICE])
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    out = harness.run(args, tokenizer=ByteTokenizer())
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+    (outputs,) = glob.glob(os.path.join(out_dir, "MVBENCH", "outputs-*.json"))
+    with open(outputs) as fh:
+        records = json.load(fh)
+    log(f"[8] eval.harness.run mvbench --batch_slots 2: {len(records)} records in "
+        f"{out['seconds']:.3f} s, metrics {json.dumps(out['metrics'])} (random weights); records "
+        f"{json.dumps(records)}; launches {json.dumps(counts)}")
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
+    n_q = sum(len(q) for _, _, q in MVB_VIDEOS)
+    if len(records) != n_q or missing:
+        raise AssertionError(f"harness: {len(records)} records, kernels not launched: {missing}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _round_trip_and_host_path(cfg, path):
@@ -1831,7 +2174,26 @@ def _demo_clip(ckpt, clip):
     if out["n_frames"] != 16 or missing:
         raise AssertionError(f"demo: {out['n_frames']} frames, kernels not launched: {missing}")
     _serve_clip(ckpt, clip)
+    _activation_dump(ckpt, clip)
     return counts
+
+
+def _activation_dump(ckpt, clip):
+    """cli/activation_diff dump of the checkpoint on the clip (no tokenizer
+    beside the checkpoint: the visual stages), and its exact self-diff."""
+    from tdc_video_tpu_torch.cli import activation_diff
+
+    path = os.path.join(os.path.dirname(clip), "activations.npz")
+    t0 = time.perf_counter()
+    activation_diff.main(["dump", "--model_path", ckpt, "--video", clip, "--out", path,
+                          "--device", DEVICE])
+    dump_s = time.perf_counter() - t0
+    z = np.load(path)
+    shapes = {k: list(z[k].shape) for k in z.files}
+    log(f"[8] activation_diff dump in {dump_s:.3f} s: {json.dumps(shapes)}")
+    need = {"siglip_feats", "dino_feats", "frame_feats", "boundaries", "visual"}
+    if not need <= set(z.files) or activation_diff.main(["diff", path, path]) != 0:
+        raise AssertionError(f"activation_diff: keys {sorted(z.files)}, or its self-diff failed")
 
 
 def _serve_clip(ckpt, clip):
@@ -2580,6 +2942,7 @@ def main() -> int:
     next(r for r in rows if r["name"] == "full_attention_nhd")["device_ms"] = ms / n
     counts10 = phase_serving_options(cfg, params, pred, frames, list(pred.stats.last_ids))
     counts12 = dict(zip(("serve", "chat"), phase_multi_serving(cfg, params, pred, frames)))
+    counts13 = phase_eval_stream(cfg, params, has_ffmpeg)
     del params, pred
     gc.collect()
     torch.cuda.empty_cache()
@@ -2616,8 +2979,8 @@ def main() -> int:
     counts11, s3_rows = phase_stage3(av, has_ffmpeg)
     for r in s3_rows:  # K1, K5, K6 at the stage-3 shape: launches per LoRA micro-step
         r["launches"] = counts11["lora"][r["name"]]
-    for r in rows + train_rows + [k1_av] + s3_rows:  # each kernel on phase 11's and 12's legs
-        for leg, c in list(counts11.items()) + list(counts12.items()):
+    for r in rows + train_rows + [k1_av] + s3_rows:  # each kernel on phase 11's to 13's legs
+        for leg, c in list(counts11.items()) + list(counts12.items()) + list(counts13.items()):
             r[f"launches_{leg}"] = c[r["name"]]
     print(json.dumps({"kernels": rows + train_rows + [k1_av] + s3_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -138,11 +138,23 @@ def merge_lora(
 
 
 class TDCModel:
-    """Loaded model bundle: config + parameter tree."""
+    """Loaded model bundle: config + parameter tree, with generation from
+    pixels (serving/generate.generate) and the training loss
+    (model.tdc_loss) bound to them."""
 
     def __init__(self, cfg: C.TDCConfig, params: Any):
         self.cfg = cfg
         self.params = params
+
+    def generate(self, *args, **kw):
+        from .serving.generate import generate
+
+        return generate(self.cfg, self.params, *args, **kw)
+
+    def loss(self, batch, **kw):
+        from .model import tdc_loss
+
+        return tdc_loss(self.cfg, self.params, batch, **kw)
 
 
 def _to_device(device: torch.device, dtype: torch.dtype):

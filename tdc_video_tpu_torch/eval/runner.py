@@ -13,10 +13,19 @@ weights) and prompt-lookup speculative decoding (`spec_window`).  Several
 questions about one video go through the continuous-batching DecodeEngine
 (`answer_many`, serving/batching.py), and a conversation through one
 resident cache (`chat`, serving/session.py).
+
+Below the predictor: the benchmark helpers of JAX's runner (letter
+extraction, sharding and gathering, accuracy, result files, LVCoT).  The
+port runs one process until multi-device is ported (ROADMAP.md queue 1
+item 5): `shard_samples` and `allgather_records` return their input and
+raise under a torch.distributed group of several ranks.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import re
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -32,10 +41,25 @@ from ..data.conversation import conv_templates
 from ..data.images import device_preprocess, frame_bucket, pad_frames, process_frames
 from ..data.preprocess import tokenizer_image_token
 from ..device import resolve_device, synchronize
+from ..media import io as media_io
 from ..media.io import window_audio
 from ..model import encode_audio, encode_frames, prepare_multimodal_from_features
 from ..ops.audio import second_groups
 from ..serving.generate import generate_encoded
+
+
+LETTERS = ["A", "B", "C", "D", "E"]
+
+
+def extract_letter(pred: str, letters: Sequence[str] = ("A", "B", "C", "D")) -> str:
+    """The reference's letter extraction (eval_mlvu.py:245-263): the first
+    regex match, 'A' when none parses, 'C' when the parse is not an option."""
+    pred = pred.replace("Answer", "")
+    found = re.findall(r"[\(\ \[]*([A-E])[\)\.\ \]]*", pred)
+    cand = found[0].strip().strip("()") if found else "A"
+    if cand in letters:
+        return cand
+    return letters[min(2, len(letters) - 1)]
 
 
 class HFTokenizerAdapter:
@@ -413,3 +437,103 @@ class TDCPredictor:
         return [self.tok.decode(_trim_generated(by_uid[i].tokens, cfg.lm)).strip()
                 for i in range(len(prefixes))]
 
+    def answer_video(self, video_path: str, question: str, **kw) -> Optional[str]:
+        """Decode at the config's fps and answer; None when the video is
+        missing, unreadable or empty (the reference skips such rows,
+        eval_mlvu.py:182-184).  A decoder that cannot be built or loaded
+        raises: that is no fault of the video.  with_audio=True loads the
+        clip's own soundtrack; video_uid defaults to the path."""
+        if not os.path.exists(video_path):
+            return None
+        media_io.decoder()
+        try:
+            frames, ts = media_io.decode_video(video_path, fps=self.cfg.video_fps,
+                                               max_frames=self.max_eval_frames)
+        except OSError:
+            return None
+        if len(frames) == 0:
+            return None
+        wav = kw.pop("wav", None)
+        if kw.pop("with_audio", False) and wav is None:
+            wav = media_io.load_audio(video_path)
+        kw.setdefault("video_uid", video_path)
+        return self.answer(frames, question, wav=wav, frame_seconds=ts, **kw)
+
+
+# -- benchmark helpers ---------------------------------------------------------
+
+
+def process_rank() -> int:
+    """This process's rank: 0 unless a torch.distributed group is up."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _one_process(what: str) -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(f"{what} over {dist.get_world_size()} ranks: multi-device "
+                                  "eval is not ported (ROADMAP.md queue 1 item 5)")
+
+
+def shard_samples(samples: List[Any]) -> List[Any]:
+    """This process's share of the samples (JAX: round-robin over hosts):
+    all of them, in one process."""
+    _one_process("shard_samples")
+    return samples
+
+
+def allgather_records(records: List[dict]) -> List[dict]:
+    """Every process's records (JAX: process_allgather of their JSON):
+    this process's, in one process."""
+    _one_process("allgather_records")
+    return records
+
+
+def accuracy_by_task(records: List[dict]) -> Dict[str, float]:
+    """Per-task accuracy and their macro average "Acc" (the reference's
+    eval_mlvu.py:299-323)."""
+    acc: Dict[str, list] = {}
+    for r in records:
+        t = r.get("task_type", "all")
+        acc.setdefault(t, [0, 0])
+        acc[t][1] += 1
+        if r["pred"] == r["answer"]:
+            acc[t][0] += 1
+    out = {k: v[0] / v[1] * 100 for k, v in acc.items() if v[1]}
+    if out:
+        out["Acc"] = sum(out.values()) / len(out)
+    return out
+
+
+def dump_results(records: List[dict], metrics: Dict[str, float], out_dir: str, name: str):
+    """outputs-<stamp>.json (the records) and result-<stamp>.json (the
+    metrics), stamped to the second, written by rank 0."""
+    if process_rank() != 0:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    stamp = time.strftime("%Y-%m-%d-%H:%M:%S")
+    with open(os.path.join(out_dir, f"outputs-{stamp}.json"), "w") as fh:
+        json.dump(records, fh)
+    with open(os.path.join(out_dir, f"result-{stamp}.json"), "w") as fh:
+        json.dump(metrics, fh, indent=4)
+    print(f"[{name}] {metrics}", flush=True)
+
+
+def lvcot(predictor: TDCPredictor, frames: np.ndarray, max_forward: int = 2,
+          video_uid: Optional[str] = None) -> str:
+    """Long-video chain of thought (the reference's eval/cot.py:13-66):
+    caption max_forward equal segments and join the captions, the <think>
+    prefix of the real question."""
+    outputs = []
+    seg = len(frames) // max_forward
+    for i in range(max_forward):
+        sub = frames[i * seg: (i + 1) * seg]
+        if len(sub) == 0:
+            continue
+        outputs.append(predictor.answer(
+            sub, "Describe the video segment in detail.", max_new_tokens=128,
+            video_uid=None if video_uid is None else f"{video_uid}#lvcot{i}"))
+    return " ".join(outputs)

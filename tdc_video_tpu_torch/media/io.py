@@ -92,6 +92,14 @@ def _load():
     return lib
 
 
+def decoder():
+    """The native library, built at first use.  Raises when it cannot be
+    built or loaded (no g++, no FFmpeg libraries): callers that skip
+    unreadable videos call this first, so that a missing decoder is not
+    read as a missing video."""
+    return _load()
+
+
 def probe(path: str) -> dict:
     lib = _load()
     dur = ctypes.c_double()

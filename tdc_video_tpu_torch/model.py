@@ -1,7 +1,7 @@
 """Top-level TDC-Video model: towers -> SVA -> segment -> TDC -> LM (port of
-tdc_video_tpu/model.py; frame_pos is not ported).
+tdc_video_tpu/model.py).
 
-    encode_frames                     towers + SVA + newline        [T, P, H]
+    encode_frames                     towers + SVA + newline (+frame_pos) [T, P, H]
     encode_audio                      fbank + BEATs + frame pooling  [T, 50, H]
     prepare_visual                    segmentation + TDC compression [Vmax, H]
     prepare_multimodal_inputs         encode + compress + splice     [B, Lmax, H]
@@ -70,6 +70,17 @@ def frame_token_len(cfg: TDCConfig) -> int:
     return cfg.sva.image_token_len
 
 
+def get_frame_pos(cfg: TDCConfig, frame_indices: torch.Tensor) -> torch.Tensor:
+    """Sinusoidal temporal embedding [T, H] per frame index, interleaved as
+    the reference's buffer (cambrian_arch.py:152-163, :183-190):
+    out[2k] = sin(t * w_k), out[2k+1] = cos(t * w_k), w_k = 10000^(-2k/H)."""
+    H = cfg.lm.hidden_size
+    j = torch.arange(H, device=frame_indices.device)
+    inv = 1.0 / torch.pow(10000.0, (2 * (j // 2)).to(torch.float32) / H)
+    ang = frame_indices.to(torch.float32)[:, None] * inv[None]
+    return torch.where(j[None] % 2 == 0, torch.sin(ang), torch.cos(ang))
+
+
 def encode_frames(
     cfg: TDCConfig,
     params: Params,
@@ -77,9 +88,13 @@ def encode_frames(
     dino_px: torch.Tensor,  # [T, Hd, Wd, 3] normalized
     attn_impl: str = "xla",
     remat: bool = False,
+    *,
+    frame_indices: Optional[torch.Tensor] = None,  # [T] time indices, for frame_pos
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (frame_feats [T, P, H_lm], dino_feats [T, 576, C_dino]).
-    remat=True (training) runs the SVA in checkpointed chunks of 16 frames,
+    With cfg.compression.frame_pos and frame_indices, each frame's tokens
+    get get_frame_pos of its index added (JAX :169-170).  remat=True
+    (training) runs the SVA in checkpointed chunks of 16 frames,
     so the backward keeps one chunk's SVA internals at a time (JAX
     :132-155).  The towers get no checkpoint, as in JAX: frozen, they build
     no graph at all (their inputs are data)."""
@@ -106,6 +121,8 @@ def encode_frames(
         grid = feats.reshape(T, side, side, H)
         nl = params["image_newline"].to(grid.dtype)[None, None, None].expand(T, side, 1, H)
         feats = torch.cat([grid, nl], dim=2).reshape(T, side * (side + 1), H)
+    if cfg.compression.frame_pos and frame_indices is not None:
+        feats = feats + get_frame_pos(cfg, frame_indices).to(feats.dtype)[:, None, :]
     return feats, dino_feats
 
 
@@ -178,6 +195,7 @@ def prepare_multimodal_inputs(
     has_image: Optional[torch.Tensor] = None,  # [B] bool
     token_valid: Optional[torch.Tensor] = None,  # [B, P]
     query_pool: Optional[torch.Tensor] = None,  # [B, K, P]
+    frame_indices: Optional[torch.Tensor] = None,  # [B, T] time indices (frame_pos)
     max_len: int = 4096,
     max_visual_len: int = 2048,
     attn_impl: str = "xla",
@@ -185,12 +203,13 @@ def prepare_multimodal_inputs(
 ) -> Dict[str, torch.Tensor]:
     """Encode every frame of the batch as one tower batch, then compress and
     splice (JAX :250-341): dict(embeds [B, max_len, H], attn_mask, labels,
-    seq_len).  Raw audio windows are encoded per sample in the graph, so
-    that gradients reach BEATs and audio_proj when they train; each
-    sample's encode is checkpointed under remat_encode."""
-    if cfg.compression.frame_pos:
-        raise NotImplementedError("frame_pos (get_frame_pos) is not ported")
+    seq_len).  With frame_pos and no frame_indices, each frame's index is
+    its position (JAX :288-291).  Raw audio windows are encoded per sample
+    in the graph, so that gradients reach BEATs and audio_proj when they
+    train; each sample's encode is checkpointed under remat_encode."""
     B, T = frame_mask.shape
+    if frame_indices is None and cfg.compression.frame_pos:
+        frame_indices = torch.arange(T, device=frame_mask.device)[None].expand(B, T)
     if audio_tokens is None and audio_windows is not None:
         def enc(w, wm, f, p_, g, sv):
             return encode_audio(cfg, params, w, wm, f, p_, g, T, sv)
@@ -205,8 +224,9 @@ def prepare_multimodal_inputs(
         audio_tokens = torch.stack(per_sample)
     flat_sig = siglip_px.reshape((B * T,) + siglip_px.shape[2:])
     flat_dino = dino_px.reshape((B * T,) + dino_px.shape[2:])
-    frame_feats, dino_feats = encode_frames(cfg, params, flat_sig, flat_dino, attn_impl=attn_impl,
-                                            remat=remat_encode)
+    frame_feats, dino_feats = encode_frames(
+        cfg, params, flat_sig, flat_dino, attn_impl=attn_impl, remat=remat_encode,
+        frame_indices=None if frame_indices is None else frame_indices.reshape(B * T))
     P = frame_feats.shape[1]
     return prepare_multimodal_from_features(
         cfg, params, input_ids, image_pos, frame_feats.reshape(B, T, P, -1),

@@ -239,7 +239,7 @@ class Trainer:
         a JAX tree through convert/from_numpy) instead of a fresh one."""
         if mesh is not None:
             raise NotImplementedError("device meshes and FSDP are not ported: one device "
-                                      "(ROADMAP.md queue 1 item 8)")
+                                      "(ROADMAP.md queue 1 item 5)")
         if not tcfg.lora_enable and (lora is not None or lora_key is not None):
             raise ValueError("a LoRA tree or key was given without lora_enable")
         self.cfg = cfg

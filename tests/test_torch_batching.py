@@ -335,3 +335,86 @@ def test_one_read_per_chunk(setup, monkeypatch):
     eng.run()
     assert len(reads) == eng.steps > 0
     assert len(eng.chunk_spans) == eng.steps and sum(n for _, _, n in eng.chunk_spans) > 0
+
+
+# -- randomized streams (tests/test_batching.py:488 and :704) -----------------
+
+
+def _drained(eng):
+    """Nothing stranded or leaked: no queue, no half-built prefill, no
+    request in a slot, no active slot, no stored prefix."""
+    assert eng._queue == [] and eng._pending is None
+    assert all(r is None for r in eng._requests)
+    assert not eng._active_host.any() and not bool(eng._active.any())
+    assert eng._prefixes == {}
+
+
+@pytest.mark.parametrize("mode", [{}, dict(prefill_chunk=4), dict(spec_window=3, prefill_chunk=4),
+                                  dict(spec_window=4, kv_quant="int8")],
+                         ids=["plain", "chunked", "spec+chunked", "spec+kv8"])
+def test_random_staggered_stream(setup, mode):
+    """Random prompt lengths and budgets, submitted two then one per run():
+    every request returns once with its solo greedy tokens (int8 KV: a
+    budget-respecting stream) and the engine drains clean between runs."""
+    tp = setup[1]
+    rng = np.random.default_rng(77)
+    # a tight alphabet, so that some answers repeat or stop early
+    prompts = [rng.integers(2, 40, int(rng.integers(3, 14))) for _ in range(8)]
+    budgets = [int(rng.integers(1, 9)) for _ in prompts]
+    eng = _engine(tp, num_slots=3, capacity=32, chunk_tokens=2, **mode)
+    done, submitted = [], 0
+    while submitted < len(prompts):
+        for _ in range(2 if submitted == 0 else 1):
+            if submitted < len(prompts):
+                eng.submit(_req(tp, prompts[submitted], budgets[submitted], uid=submitted))
+                submitted += 1
+        done += eng.run()
+        _drained(eng)
+    assert sorted(r.uid for r in done) == list(range(len(prompts)))
+    for r in done:
+        assert 1 <= len(r.tokens) <= budgets[r.uid]
+        if not mode.get("kv_quant"):
+            want = _solo(tp, prompts[r.uid], budgets[r.uid])
+            assert r.tokens[: len(want)] == want
+
+
+@pytest.mark.parametrize("mode", [dict(prefill_chunk=4), dict(spec_window=3)],
+                         ids=["chunked", "spec"])
+def test_no_request_stranded_under_adversarial_stream(setup, mode):
+    """Random arrivals, shared-prefix pairs, cancels of queued requests and
+    instant timeouts: every request returns exactly once, within its
+    budget, and the engine ends drained with no prefix held."""
+    tp = setup[1]
+    rng = np.random.default_rng(123)
+    shared = rng.integers(2, 90, 12)
+    eng = _engine(tp, num_slots=2, capacity=64, chunk_tokens=2, **mode)
+    n, returned, submitted = 14, [], 0
+    while submitted < n:
+        for _ in range(2 if submitted == 0 else 1):
+            if submitted >= n:
+                break
+            uid = f"r{submitted}"
+            kw = {}
+            if submitted % 3 == 0 and not mode.get("spec_window"):
+                ids = np.concatenate([shared, rng.integers(2, 90, 3)])
+                kw = dict(prefix_key="vid", prefix_len=len(shared))
+            else:
+                ids = rng.integers(2, 90, int(rng.integers(3, 14)))
+            if submitted % 5 == 1:
+                kw["timeout_s"] = 0.0
+            eng.submit(_req(tp, ids, int(rng.integers(1, 8)), uid=uid, **kw))
+            if submitted % 4 == 2:
+                eng.cancel(uid)
+            submitted += 1
+        returned += eng.run()
+    returned += eng.run()  # nothing left: a no-op
+    uids = [r.uid for r in returned]
+    assert sorted(uids) == sorted(f"r{i}" for i in range(n)) and len(set(uids)) == n
+    _drained(eng)
+    for r in returned:
+        assert r.done and len(r.tokens) <= r.max_new_tokens
+        i = int(r.uid[1:])
+        if i % 4 == 2:
+            assert r.cancelled and r.tokens == []
+        elif i % 5 == 1:
+            assert r.timed_out and r.tokens == []

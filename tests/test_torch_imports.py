@@ -35,7 +35,9 @@ def test_port_and_smoke_script_import_no_jax():
         # profiling) among them
         for m in ("models.quant", "serving.speculative", "utils.profiling", "train.lora",
                   "train.dataset", "train.runner_utils", "train.run", "serving.prng",
-                  "serving.batching", "serving.session", "cli.serve"):
+                  "serving.batching", "serving.session", "cli.serve", "eval.datasets",
+                  "eval.harness", "serving.streaming", "cli.activation_diff", "cli.model_ops",
+                  "models.projector"):
             assert "tdc_video_tpu_torch." + m in names, m
         print(len(names))
         """
