@@ -193,6 +193,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Every kernel's entry gets its launches in (a), grouped and one at a
    time, and in (c) (`launches_eval`, `launches_eval_solo`,
    `launches_stream`).
+14. multi-device serving and evaluation, run right after phase 13 on phase
+   3's model, frames and question: two ranks, child processes of the smoke
+   (`chip_smoke.py --mesh-rank`, torchrun's variables, killed at a wall
+   limit), both on cuda:0 in a gloo group (NCCL refuses two ranks on one
+   device; gloo carries the CUDA tensors through the host), each building
+   TDC-Llama3.2-3B at full width and depth from the seed, one JSON line a
+   leg: (a) tensor parallelism over a 1x2 mesh (TDCPredictor(mesh=): 12
+   query and 4 KV heads a rank): a second `answer` (the first pays the
+   process's one-time costs) phase 3's tokens or parting on a near tie
+   (phase 12's rule, or phase 13's: a top-2 gap within twice the TP and
+   one-process logits' difference there, itself within 0.25), the prefill
+   logits keeping phase 3's argmax within phase 4's 0.25, answer_many of phase 12's questions phase 12's
+   tokens or near ties, every rank's tokens equal, launches per rank K1 28
+   (q [1, 1416, 12, 128], kv [1, 1432, 4, 128]), K2 40, K3 27 exactly, K1
+   timed at that shape on rank 0 beside its bound and SDPA, each rank's
+   peak memory; (b) frames over a 2x1 mesh (8 frames a rank, gathered):
+   the features within 1e-2 (max abs over max abs) of phase 3's
+   one-process encode, K2 40 and K3 27 per rank, each timed on rank 0 at 8
+   frames; (c) run_benchmark over phase 13's MVBench tree, data-parallel
+   over the two ranks (one predictor each): phase 13's one-at-a-time
+   records (equal: each rank computes what phase 13 computed), K1 28 a
+   question, rank 0 alone writing results, no log left; (d) a one-rank NCCL
+   group in the smoke's own process: an all_reduce, then TDCPredictor on a
+   1x1 mesh answering phase 3's tokens exactly.  The walls are printed; one
+   card shares its SMs between the ranks and gloo moves every collective
+   through the host, so they show no multi-GPU speed.  Every kernel's entry
+   gets rank 0's launches in (a)-(d) (`launches_tp`, `launches_dp`,
+   `launches_eval_dp`, `launches_nccl`); K1 at (a)'s shape and K2, K3 at 8
+   frames get entries of their own.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -1189,7 +1218,7 @@ def _decode_rate(eng) -> float:
 def phase_multi_serving(cfg, params, pred, frames):
     """Phase 12: several questions about one video through answer_many and
     ChatSession on phase 3's model (module docstring).  Returns the launch
-    counts of legs (a) and (e)."""
+    counts of legs (a) and (e), and leg (a)'s ids."""
     from tdc_video_tpu_torch.eval.runner import TDCPredictor
     from tdc_video_tpu_torch.models import lm as lm_mod
     from tdc_video_tpu_torch.ops import flash_attention as fa
@@ -1367,7 +1396,7 @@ def phase_multi_serving(cfg, params, pred, frames):
     if later["full_attention_nhd"] or later["full_attention_nhd_seqq"]:
         raise AssertionError(f"[12e] turns 2-3 ran the towers: {later}")
     log(f"[12] phase 12 in {time.perf_counter() - t_phase:.1f} s")
-    return counts_a, counts_chat
+    return counts_a, counts_chat, ids_a
 
 
 # ---------------------------------------------------------------------------
@@ -1463,7 +1492,7 @@ def _eval_run(pred, data, out, slots):
 
 def _eval_legs(cfg, params, tmp):
     """(a): run_benchmark one question at a time, then grouped; returns the
-    launch counts of both runs."""
+    launch counts of both runs and the one-at-a-time records."""
     from tdc_video_tpu_torch.eval.runner import TDCPredictor
     from tdc_video_tpu_torch.serving.generate import prefill_encoded
 
@@ -1533,7 +1562,7 @@ def _eval_legs(cfg, params, tmp):
     for mode, got in (("one_at_a_time", c_s), ("grouped", c_g)):
         if got != expected[mode]:
             raise AssertionError(f"[13a] {mode} launches {got}, expected {expected[mode]}")
-    return c_s, c_g
+    return c_s, c_g, r_s
 
 
 def _stream_leg(cfg, params, tmp, has_ffmpeg):
@@ -1627,14 +1656,391 @@ def _stream_leg(cfg, params, tmp, has_ffmpeg):
 def phase_eval_stream(cfg, params, has_ffmpeg: bool):
     """Phase 13: the MVBench-style benchmark through run_benchmark, one
     question at a time and grouped (a), and streaming ingestion (c), on
-    phase 3's model (module docstring).  Returns {"eval", "eval_solo",
-    "stream"}: launch counts."""
+    phase 3's model (module docstring).  Returns ({"eval", "eval_solo",
+    "stream"}: launch counts, the one-at-a-time records)."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="tdc_eval_") as tmp:
-        c_solo, c_grouped = _eval_legs(cfg, params, tmp)
+        c_solo, c_grouped, records = _eval_legs(cfg, params, tmp)
         c_stream = _stream_leg(cfg, params, tmp, has_ffmpeg)
     log(f"[13] phase 13 in {time.perf_counter() - t_phase:.1f} s; {card()}")
-    return {"eval": c_grouped, "eval_solo": c_solo, "stream": c_stream}
+    return {"eval": c_grouped, "eval_solo": c_solo, "stream": c_stream}, records
+
+
+# ---------------------------------------------------------------------------
+# Phase 14
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+# a rank left waiting in a collective fails after the group's timeout; the
+# ranks' wall limit ends the phase (both killed) well inside the smoke's
+MESH_TIMEOUT_S = 120.0
+MESH_WALL_S = 300.0
+# TDC-Llama3.2-3B at model = 2: each rank's query and KV heads
+TP_HEADS = (12, 4)
+
+
+def _stream_logits(cfg, params, gen, ids, mesh=None):
+    """f32 logits [len(ids), V] (on the host) along the stream `ids` after
+    this request's prefill: row p is what token p is chosen from, the
+    tokens before it fed back."""
+    from tdc_video_tpu_torch.models import lm as lm_mod
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    logits, cache = prefill_encoded(cfg, params, **gen, attn_impl="flash", mesh=mesh)
+    rows = [logits[0].float().cpu()]
+    for tok in ids[:-1]:
+        emb = lm_mod.embed_tokens(cfg.lm, params["lm"], torch.tensor([[tok]], device=logits.device),
+                                  cfg.dtype, mesh)
+        logits, cache = lm_mod.decode_step(cfg.lm, params["lm"], emb, cache, attn_impl="flash",
+                                           dtype=cfg.dtype, mesh=mesh)
+        rows.append(logits[0].float().cpu())
+    return torch.stack(rows)
+
+
+def _hold_mesh(tag, cfg, params, got, want, tp_stream, gen):
+    """got (the TP stream) equal to want (one process), or parting first on
+    a near tie of want's run: a top-2 gap under SPEC_TIE_GAP (phase 12's
+    rule), or within the two runs' own difference there, phase 13's rule:
+    at most twice the largest difference of a logit between the TP and the
+    one-process logits at that position (both fed want's tokens), itself
+    within phase 4's LOGIT_ATOL (TP sums bf16 partial products, which the
+    one-process model rounds once).  `tp_stream()` loads the ranks' logits
+    along want (_stream_logits).  Returns None or (position, gap, diff)."""
+    p = _first_part(_trimmed(cfg, got), _trimmed(cfg, want))
+    if p is None:
+        return None
+    ref = _stream_logits(cfg, params, gen, want)[p]
+    top2 = torch.topk(ref, 2).values
+    gap, diff = float(top2[0] - top2[1]), float((tp_stream()[p] - ref).abs().max())
+    log(f"[14] {tag}: parts at position {p} where the one-process top-2 gap is {gap:.4e}; the "
+        f"TP and one-process logits differ there by up to {diff:.4e}")
+    if not (gap < SPEC_TIE_GAP or (gap <= 2 * diff and diff <= LOGIT_ATOL)):
+        raise AssertionError(f"[14] {tag}: {got} differs from {want} off a near tie")
+    return p, gap, diff
+
+
+def _rank_main() -> int:
+    """One rank of phase 14, run as `chip_smoke.py --mesh-rank <tmp>` with
+    torchrun's variables (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a
+    gloo group on cuda:0, TDC-Llama3.2-3B at full width and depth from the
+    seed (the weights of phase 3), legs (a)-(c).  Writes rank<r>.json (and
+    rank 0 the tensors the parent compares) into <tmp>."""
+    import torch.distributed as dist
+
+    from tdc_video_tpu_torch.config import tdc_llama32_3b
+    from tdc_video_tpu_torch.data.images import device_preprocess
+    from tdc_video_tpu_torch.eval import harness
+    from tdc_video_tpu_torch.eval.datasets import load_mvbench
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor, prefill_shape
+    from tdc_video_tpu_torch.model import encode_frames, init_tdc
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.parallel.mesh import init_distributed, make_mesh, warmup_collectives
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    tmp = sys.argv[sys.argv.index("--mesh-rank") + 1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(backend="gloo", device="cuda:0", timeout_s=MESH_TIMEOUT_S)
+    rank = dist.get_rank()
+    cfg = tdc_llama32_3b()
+    params = init_tdc(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, torch.bfloat16)
+    frames = synth_frames(SEED)
+    out = {"rank": rank, "rows": []}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(fa.launches)
+
+    def rows_on_rank0(specs):
+        """Kernel rows timed on rank 0 alone while rank 1 waits."""
+        if rank == 0:
+            rnd = _rnd_fn(SEED)
+            out["rows"] += [_fwd_row(fa, rnd, *spec) for spec in specs]
+        dist.barrier()
+
+    # (a) tensor-parallel LM, 1x2
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, MESH_RANKS, device=dev, num_kv_heads=cfg.lm.num_kv_heads)
+    warmup_collectives(mesh)
+    pred = TDCPredictor(cfg, params, ByteTokenizer(), bert_tokenizer=None, device_preprocess=True,
+                        mesh=mesh)
+    # the first answer pays one-time costs (the kernel libraries' load in
+    # this process, allocator growth); the second is measured, as in phase 3
+    _, out["tp_first_answer_s"], _ = timed(
+        lambda: pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS))
+    _, out["tp_answer_s"], out["launches_tp"] = timed(
+        lambda: pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS))
+    out["tp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["tp_ids"] = list(pred.stats.last_ids)
+    st = pred.stats
+    out["tp_stages_s"] = {"encode": st.encode_s, "compress_prefill": st.prefill_s,
+                          "decode": st.decode_s}
+    gen = pred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)["gen"]
+    logits = prefill_encoded(cfg, pred.params, **gen, attn_impl="flash", mesh=mesh)[0]
+    if rank == 0:
+        torch.save(logits.float().cpu(), os.path.join(tmp, "tp_logits.pt"))
+    _, out["tp_many_s"], _ = timed(lambda: pred.answer_many(
+        frames, SERVE_QUESTIONS, max_new_tokens=MAX_NEW_TOKENS, video_uid="p14",
+        num_slots=SERVE_SLOTS))
+    out["tp_many_ids"] = [list(x) for x in pred.stats.last_many_ids]
+    # where a stream parts from the one-process run's, the TP logits along
+    # that run's tokens, for the parent's tie rule (_hold_mesh); every rank
+    # holds the same tokens, so all take part in these collectives
+    with open(os.path.join(tmp, "want.json")) as fh:
+        want = json.load(fh)
+    for key, q, got, w in ([("answer", QUESTION, out["tp_ids"], want["answer"])]
+                           + [(f"many{i}", q, g, w) for i, (q, g, w) in
+                              enumerate(zip(SERVE_QUESTIONS, out["tp_many_ids"], want["many"]))]):
+        if _trimmed(cfg, got) != _trimmed(cfg, w):
+            g = pred.prepare(frames, q, max_new_tokens=MAX_NEW_TOKENS)["gen"]
+            stream = _stream_logits(cfg, pred.params, g, w, mesh)
+            if rank == 0:
+                torch.save(stream, os.path.join(tmp, f"tp_stream_{key}.pt"))
+    out["tp_q_cols"] = pred.params["lm"]["layers"]["q_proj"]["w"].shape[-1]
+    out["tp_cache_heads"] = next(iter(pred._engine_cache.values())).cache["k"].shape[3]
+    T, S = prefill_shape(cfg, ByteTokenizer(), QUESTION, N_FRAMES, MAX_NEW_TOKENS)
+    rows_on_rank0([("flash_kernel", "tdc_video_tpu/ops/flash_attention.py:38",
+                    (1, T, S, *TP_HEADS, 128), True)])
+    out["tp_leg_s"] = time.perf_counter() - t0
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) frames over data, 2x1
+    t0 = time.perf_counter()
+    mesh21 = make_mesh(MESH_RANKS, 1, device=dev)
+    warmup_collectives(mesh21)
+    sig, dino = device_preprocess(torch.from_numpy(frames).to(dev), cfg)
+    (ff, _), out["dp_encode_s"], out["launches_dp"] = timed(lambda: encode_frames(
+        cfg, params, sig.to(cfg.dtype), dino.to(cfg.dtype), attn_impl="flash", mesh=mesh21))
+    if rank == 0:
+        torch.save(ff.float().cpu(), os.path.join(tmp, "dp_feats.pt"))
+    share = N_FRAMES // MESH_RANKS
+    rows_on_rank0([("full_attention_nhd", "tdc_video_tpu/ops/flash_attention.py:198",
+                    (share, 730, 730, 24, 24, 64), False),
+                   ("full_attention_nhd_seqq", "tdc_video_tpu/ops/flash_attention.py:242",
+                    (share, 729, 729, 16, 16, 72), False)])
+    out["dp_leg_s"] = time.perf_counter() - t0
+
+    # (c) evaluation, data-parallel over the ranks: one predictor each
+    t0 = time.perf_counter()
+    pred_c = TDCPredictor(cfg, params, ByteTokenizer(), bert_tokenizer=None, max_new_tokens=5,
+                          max_eval_frames=1000, device=dev)
+    samples = load_mvbench(os.path.join(tmp, "MVBench"))
+    out["eval_metrics"], out["eval_s"], out["launches_eval_dp"] = timed(
+        lambda: harness.run_benchmark("mvbench", pred_c, samples,
+                                      out_dir=os.path.join(tmp, "eval_dp")))
+    out["eval_answered"] = pred_c.stats.samples
+    out["eval_leg_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(tmp):
+    """Start MESH_RANKS ranks of _rank_main, each with its log under tmp;
+    wait for all of them within MESH_WALL_S.  A rank that fails, or the
+    wall limit, ends the others (killed) and the phase."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs, logs = [], []
+    for r in range(MESH_RANKS):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK="0", WORLD_SIZE=str(MESH_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        logs.append(open(os.path.join(tmp, f"log{r}.txt"), "w"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                       tmp], stdout=logs[-1], stderr=subprocess.STDOUT, env=env,
+                                      cwd=os.path.dirname(os.path.abspath(__file__))))
+    deadline = time.monotonic() + MESH_WALL_S
+    rcs = [None] * MESH_RANKS
+    try:
+        while any(rc is None for rc in rcs):
+            rcs = [p.poll() for p in procs]
+            if any(rc not in (None, 0) for rc in rcs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for r, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+                rcs[r] = "killed"
+        for fh in logs:
+            fh.close()
+    for r in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"log{r}.txt")) as fh:
+            for line in fh.read().splitlines()[-60:]:
+                log(f"[14] rank {r}| {line}")
+    if rcs != [0] * MESH_RANKS:
+        raise AssertionError(f"[14] ranks exited {rcs} (wall limit {MESH_WALL_S:.0f} s)")
+    results = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def _nccl_leg(cfg, params, frames, ids):
+    """(d): a one-rank NCCL group in this process: an all_reduce, then
+    TDCPredictor(mesh=1x1) answering phase 3's question; the group is gone
+    after.  Returns (ids, launches, wall s)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dev = init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                           backend="nccl", device="cuda:0", timeout_s=MESH_TIMEOUT_S)
+    try:
+        x = torch.ones(8, device=dev)
+        dist.all_reduce(x)
+        if dist.get_backend() != "nccl" or float(x.sum()) != 8.0:
+            raise AssertionError(f"[14d] {dist.get_backend()} all_reduce gave {x.tolist()}")
+        mesh = make_mesh(1, 1, device=dev, num_kv_heads=cfg.lm.num_kv_heads)
+        pred = TDCPredictor(cfg, params, ByteTokenizer(), bert_tokenizer=None,
+                            device_preprocess=True, mesh=mesh)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+        wall = time.perf_counter() - t0
+        return list(pred.stats.last_ids), dict(fa.launches), wall
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(cfg, params, pred, frames, ids, ids12, records13):
+    """Phase 14: multi-device serving and evaluation on two ranks of one card
+    (module docstring).  Returns ({"tp", "dp", "eval_dp", "nccl"}: rank 0's
+    launch counts, new kernel rows)."""
+    from tdc_video_tpu_torch.data.images import device_preprocess
+    from tdc_video_tpu_torch.model import encode_frames
+    from tdc_video_tpu_torch.serving.generate import prefill_encoded
+
+    t_phase = time.perf_counter()
+    L, D, S = cfg.lm.num_layers, cfg.dino.num_layers, cfg.siglip.num_layers
+    none = {"full_attention": 0, "flash_dq_kernel": 0, "flash_dkv_kernel": 0}
+    with tempfile.TemporaryDirectory(prefix="tdc_mesh_") as tmp:
+        write_mvbench_tree(os.path.join(tmp, "MVBench"))
+        with open(os.path.join(tmp, "want.json"), "w") as fh:
+            json.dump({"answer": list(ids), "many": [list(x) for x in ids12]}, fh)
+        # the one-process references: phase 3's prefill logits and encode
+        gen = pred.prepare(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)["gen"]
+        ref_logits = prefill_encoded(cfg, params, **gen, attn_impl="flash")[0].float().cpu()
+        sig, dino = device_preprocess(torch.from_numpy(frames).to(DEVICE), cfg)
+        ref_ff = encode_frames(cfg, params, sig.to(cfg.dtype), dino.to(cfg.dtype),
+                               attn_impl="flash")[0].float().cpu()
+        del sig, dino
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = _launch_ranks(tmp)
+        ranks_s = time.perf_counter() - t0
+        tp_logits = torch.load(os.path.join(tmp, "tp_logits.pt"))
+        dp_ff = torch.load(os.path.join(tmp, "dp_feats.pt"))
+        out_dir = os.path.join(tmp, "eval_dp", "MVBENCH")
+        files = sorted(os.listdir(out_dir))
+        outputs = [f for f in files if f.startswith("outputs-")]
+        if len(outputs) != 1 or any(f.startswith("wal-") for f in files):
+            raise AssertionError(f"[14c] result files {files}: one outputs file, no log")
+        with open(os.path.join(out_dir, outputs[0])) as fh:
+            eval_records = json.load(fh)
+        streams = {f[len("tp_stream_"):-len(".pt")]: torch.load(os.path.join(tmp, f))
+                   for f in os.listdir(tmp) if f.startswith("tp_stream_")}
+    r0 = res[0]
+
+    # (a) every rank the same tokens; phase 3's answer and logits
+    for key in ("tp_ids", "tp_many_ids"):
+        if any(r[key] != r0[key] for r in res):
+            raise AssertionError(f"[14a] ranks differ in {key}: {[r[key] for r in res]}")
+
+    def hold(key, q, got, want):
+        gen = pred.prepare(frames, q, max_new_tokens=MAX_NEW_TOKENS)["gen"]
+        return _hold_mesh(f"(a) TP {key} vs one process", cfg, params, got, want,
+                          lambda: streams[key], gen)
+
+    tie_a = hold("answer", QUESTION, r0["tp_ids"], ids)
+    ties_many = [hold(f"many{i}", q, got, want) for i, (q, got, want) in
+                 enumerate(zip(SERVE_QUESTIONS, r0["tp_many_ids"], ids12))]
+    diff = float((tp_logits - ref_logits).abs().max())
+    af, ar = int(tp_logits.argmax(-1)[0]), int(ref_logits.argmax(-1)[0])
+    expected_a = {"flash_kernel": L, "full_attention_nhd": D, "full_attention_nhd_seqq": S, **none}
+    _leg(14, "a_tensor_parallel", mesh="1x2", backend="gloo", ranks_on="cuda:0",
+         heads_per_rank=list(TP_HEADS), q_cols_per_rank=r0["tp_q_cols"],
+         cache_kv_heads_per_rank=r0["tp_cache_heads"],
+         first_answer_wall_s=[r["tp_first_answer_s"] for r in res],
+         answer_wall_s=[r["tp_answer_s"] for r in res],
+         stages_s=r0["tp_stages_s"], answer_many_wall_s=[r["tp_many_s"] for r in res],
+         peak_gib_per_rank=[r["tp_peak_gib"] for r in res], phase3_peak_gib_note="phase 3's "
+         "line [3] max_memory_allocated, one process", logits_max_abs_diff=diff,
+         argmax={"tp": af, "phase3": ar}, near_tie=tie_a, near_ties_many=ties_many,
+         launches=[r["launches_tp"] for r in res], launches_expected=expected_a,
+         leg_s=[r["tp_leg_s"] for r in res], ids=r0["tp_ids"])
+    if af != ar or not diff <= LOGIT_ATOL:
+        raise AssertionError(f"[14a] TP prefill logits: argmax {af} vs {ar}, max abs diff {diff}")
+    if r0["tp_q_cols"] != TP_HEADS[0] * cfg.lm.head_dim or r0["tp_cache_heads"] != TP_HEADS[1]:
+        raise AssertionError(f"[14a] shard widths {r0['tp_q_cols']}, {r0['tp_cache_heads']}")
+
+    # (b) frames over data: phase 3's features
+    rel = _rel(dp_ff, ref_ff)
+    expected_b = {"flash_kernel": 0, "full_attention_nhd": D, "full_attention_nhd_seqq": S, **none}
+    _leg(14, "b_frames_over_data", mesh="2x1", frames=N_FRAMES, frames_per_rank=N_FRAMES // 2,
+         feats_rel=rel, encode_s=[r["dp_encode_s"] for r in res],
+         launches=[r["launches_dp"] for r in res], launches_expected=expected_b,
+         leg_s=[r["dp_leg_s"] for r in res])
+    if not rel <= STREAM_REL:
+        raise AssertionError(f"[14b] features {rel:.3e} from the one-process encode")
+
+    # (c) evaluation over the two ranks: phase 13's one-at-a-time records
+    key = lambda rec: (rec["video_name"], rec["question"])  # noqa: E731
+    got, want = sorted(eval_records, key=key), sorted(records13, key=key)
+    n_q = [len(q) for _, _, q in MVB_VIDEOS]
+    expected_c = [{"flash_kernel": L * n, "full_attention_nhd": D, "full_attention_nhd_seqq": S,
+                   **none} for n in n_q]
+    _leg(14, "c_eval_data_parallel", ranks=MESH_RANKS, answered=[r["eval_answered"] for r in res],
+         wall_s=[r["eval_s"] for r in res], metrics=[r["eval_metrics"] for r in res],
+         records_equal=got == want, launches=[r["launches_eval_dp"] for r in res],
+         launches_expected=expected_c)
+    if got != want or any(r["eval_metrics"] != r0["eval_metrics"] for r in res):
+        raise AssertionError(f"[14c] records {got} differ from phase 13's {want}")
+
+    # (d) NCCL, one rank, in this process
+    ids_d, counts_d, wall_d = _nccl_leg(cfg, params, frames, ids)
+    _leg(14, "d_nccl_one_rank", wall_s=wall_d, launches=counts_d, ids=ids_d)
+    if ids_d != list(ids):
+        raise AssertionError(f"[14d] {ids_d} is not phase 3's {ids}")
+
+    for r in res:
+        for name, got_c, want_c in (("a", r["launches_tp"], expected_a),
+                                    ("b", r["launches_dp"], expected_b),
+                                    ("c", r["launches_eval_dp"], expected_c[r["rank"]]),):
+            if got_c != want_c:
+                raise AssertionError(f"[14{name}] rank {r['rank']} launches {got_c}, "
+                                     f"expected {want_c}")
+    if counts_d != expected_a:
+        raise AssertionError(f"[14d] launches {counts_d}, expected {expected_a}")
+    rows = r0["rows"]
+    rows[0]["launches"] = r0["launches_tp"]["flash_kernel"]
+    for row in rows[1:]:
+        row["launches"] = r0["launches_dp"][row["name"]]
+    log(f"[14] phase 14 in {time.perf_counter() - t_phase:.1f} s (ranks {ranks_s:.1f} s); "
+        f"{card()}")
+    return {"tp": r0["launches_tp"], "dp": r0["launches_dp"],
+            "eval_dp": r0["launches_eval_dp"], "nccl": counts_d}, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2940,9 +3346,12 @@ def main() -> int:
     # K2's device time per launch in encode, beside its `ms` (host work included)
     ms, n = phase_profile(pred, frames)["encode"]["full_attention_nhd"]
     next(r for r in rows if r["name"] == "full_attention_nhd")["device_ms"] = ms / n
-    counts10 = phase_serving_options(cfg, params, pred, frames, list(pred.stats.last_ids))
-    counts12 = dict(zip(("serve", "chat"), phase_multi_serving(cfg, params, pred, frames)))
-    counts13 = phase_eval_stream(cfg, params, has_ffmpeg)
+    ids3 = list(pred.stats.last_ids)
+    counts10 = phase_serving_options(cfg, params, pred, frames, ids3)
+    c_serve, c_chat, ids12 = phase_multi_serving(cfg, params, pred, frames)
+    counts12 = {"serve": c_serve, "chat": c_chat}
+    counts13, records13 = phase_eval_stream(cfg, params, has_ffmpeg)
+    counts14, mesh_rows = phase_mesh(cfg, params, pred, frames, ids3, ids12, records13)
     del params, pred
     gc.collect()
     torch.cuda.empty_cache()
@@ -2979,10 +3388,12 @@ def main() -> int:
     counts11, s3_rows = phase_stage3(av, has_ffmpeg)
     for r in s3_rows:  # K1, K5, K6 at the stage-3 shape: launches per LoRA micro-step
         r["launches"] = counts11["lora"][r["name"]]
-    for r in rows + train_rows + [k1_av] + s3_rows:  # each kernel on phase 11's to 13's legs
-        for leg, c in list(counts11.items()) + list(counts12.items()) + list(counts13.items()):
+    kernels = rows + train_rows + [k1_av] + s3_rows + mesh_rows
+    for r in kernels:  # each kernel on phase 11's to 14's legs (phase 14's: per rank)
+        for leg, c in (list(counts11.items()) + list(counts12.items()) + list(counts13.items())
+                       + list(counts14.items())):
             r[f"launches_{leg}"] = c[r["name"]]
-    print(json.dumps({"kernels": rows + train_rows + [k1_av] + s3_rows}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -2990,4 +3401,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_rank_main() if "--mesh-rank" in sys.argv else main())

@@ -12,6 +12,15 @@ prints tokens as the slots decode them.  Runs on CUDA unless --device cpu.
 `run(args, tokenizer=...)` takes any tokenizer with encode/decode in place of
 the checkpoint's transformers tokenizer.
 
+--mesh DxM serves over D*M GPUs, one process each (parallel/mesh.py): the
+frames split over D for the towers and the LM runs tensor-parallel over M.
+Every rank loads the model on the host, keeps its shard on its device,
+decodes the video and answers the same questions; rank 0 alone prints and
+streams.
+
+    torchrun --nproc_per_node 8 -m tdc_video_tpu_torch.cli.serve --mesh 4x2 \
+        --model_path checkpoints/TDC-Qwen2-7B --video examples/video1.mp4 --question "..."
+
 There is no compile cache to enable, as the JAX CLI enables XLA's: eager
 PyTorch compiles nothing, and the CUDA kernels are built once per checkout.
 """
@@ -56,7 +65,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as slots decode them (prefixed by the question index)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="multi-device serving: not ported (raises)")
+                    help="serve over a data-x-model mesh of D*M ranks (run under torchrun "
+                         "--nproc_per_node D*M): frames over D, the LM tensor-parallel over M")
     ap.add_argument("--chat", action="store_true",
                     help="treat the questions as sequential turns of one conversation, each "
                          "extending the previous turn's resident KV cache")
@@ -101,11 +111,13 @@ def _stream_printer(tok):
     return on_tokens
 
 
+def _quiet(*_args, **_kw):
+    """print for the ranks other than 0 of a mesh: they answer, rank 0 prints."""
+
+
 def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     """Load, decode, answer every question (or every turn with --chat).
     Returns the answers and the seconds of each step."""
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-device serving) is not ported")
     questions = list(args.question)
     if args.questions_file:
         with open(args.questions_file) as fh:
@@ -119,10 +131,21 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     from ..eval.runner import HFTokenizerAdapter, TDCPredictor
     from ..media.io import decode_video, load_audio
 
+    device, mesh_shape, say = args.device, None, print
+    if args.mesh:
+        from ..parallel.mesh import init_distributed
+
+        mesh_shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+        device = init_distributed(device=args.device)
+        if torch.distributed.get_rank() != 0:
+            say = _quiet
     t0 = time.time()
+    # under a mesh the model loads on the host and the predictor moves this
+    # rank's shard to its device: no GPU holds the whole LM
     hf_tok, model, _, _ = load_pretrained_model(
         args.model_path, args.model_base, args.model_name, dtype=torch.bfloat16,
-        load_tokenizer=tokenizer is None, quantize=args.quantize, device=args.device)
+        load_tokenizer=tokenizer is None, quantize=args.quantize,
+        device="cpu" if mesh_shape else device)
     tok = tokenizer if tokenizer is not None else HFTokenizerAdapter(hf_tok)
     bert_tok = None
     if args.bert_tokenizer:
@@ -131,23 +154,30 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
 
             bert_tok = BertTokenizer.from_pretrained(args.bert_tokenizer, truncation_side="right")
         except (ImportError, OSError) as e:  # no package, or no tokenizer files there
-            print(f"no BERT tokenizer ({type(e).__name__}): the compression is not text-conditioned")
+            say(f"no BERT tokenizer ({type(e).__name__}): the compression is not text-conditioned")
     load_s = time.time() - t0
-    print(f"model loaded in {load_s:.1f}s")
+    say(f"model loaded in {load_s:.1f}s")
 
     frames, ts = decode_video(args.video, fps=model.cfg.video_fps, max_frames=args.max_frames)
-    print(f"video: {len(frames)} frames @ 1 fps; {len(questions)} questions, {args.slots} slots")
+    say(f"video: {len(frames)} frames @ 1 fps; {len(questions)} questions, {args.slots} slots")
     wav = None
     if args.audio:
         wav = load_audio(args.audio)
     elif model.cfg.audio_input:
         wav = load_audio(args.video)
 
+    mesh = None
+    if mesh_shape:
+        from ..parallel.mesh import make_mesh, warmup_collectives
+
+        mesh = make_mesh(*mesh_shape, device=device, num_kv_heads=model.cfg.lm.num_kv_heads)
+        warmup_collectives(mesh)
+        say(f"mesh: {mesh_shape[0]}x{mesh_shape[1]} over {mesh.size()} ranks")
     predictor = TDCPredictor(model.cfg, model.params, tok, bert_tokenizer=bert_tok,
                              max_new_tokens=args.max_new_tokens, max_eval_frames=args.max_frames,
                              act_quant=args.quantize == "int8-all", spec_window=args.spec_window,
-                             device=args.device)
-    on_tokens = _stream_printer(tok) if args.stream else None
+                             device=device, mesh=mesh)
+    on_tokens = _stream_printer(tok) if args.stream and say is print else None
     out: Dict[str, Any] = {"questions": questions, "n_frames": len(frames), "load_s": load_s}
 
     t1 = time.time()
@@ -162,13 +192,13 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
             ta = time.time()
             answers.append(sess.ask(q))
             turn_s.append(time.time() - ta)
-            if args.stream:
-                print()
-            print(f"\n[turn {i + 1} | {turn_s[-1]:.1f}s] Q: {q}\nA: {answers[-1]}")
+            if on_tokens is not None:
+                say()
+            say(f"\n[turn {i + 1} | {turn_s[-1]:.1f}s] Q: {q}\nA: {answers[-1]}")
         sess.close()
         out.update(answers=answers, turn_s=turn_s, seconds=time.time() - t1,
                    turn_tokens=sess.turn_tokens)
-        print(f"\n[{len(questions)}-turn conversation in {out['seconds']:.1f}s]")
+        say(f"\n[{len(questions)}-turn conversation in {out['seconds']:.1f}s]")
         return out
 
     answers = predictor.answer_many(
@@ -177,11 +207,11 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
         prefill_chunk=args.prefill_chunk, on_tokens=on_tokens, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, seed=args.seed)
     dt = time.time() - t1
-    if args.stream:
-        print()
+    if on_tokens is not None:
+        say()
     for q, a in zip(questions, answers):
-        print(f"\nQ: {q}\nA: {a}")
-    print(f"\n[{len(questions)} answers in {dt:.1f}s]")
+        say(f"\nQ: {q}\nA: {a}")
+    say(f"\n[{len(questions)} answers in {dt:.1f}s]")
     out.update(answers=answers, seconds=dt, ids=predictor.stats.last_many_ids)
     return out
 

@@ -14,6 +14,14 @@ tokenizer.  There is no compile cache to enable, as the JAX CLI enables
 XLA's: eager PyTorch compiles nothing, and the CUDA kernels are built once
 per checkout.
 
+Under torchrun (WORLD_SIZE > 1) the run is data-parallel over the ranks, as
+JAX's over hosts: each rank joins the process group, builds its own
+predictor on cuda:LOCAL_RANK (or --device), answers its round-robin share
+of the video groups (runner.shard_samples) with its own log
+(wal-host<rank>.jsonl), and rank 0 writes the gathered records:
+
+    torchrun --nproc_per_node 8 -m tdc_video_tpu_torch.eval.harness mlvu ...
+
 One divergence from JAX: a group whose sample has a bound (MVBench's
 bounded tasks) caches its features under the video's name and the bound,
 where JAX uses the name alone (its harness.py:178), so that two
@@ -328,6 +336,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     """Load the benchmark and the model, run it; returns the metrics and
     the seconds of the run (the model's load excluded)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from ..parallel.mesh import init_distributed
+
+        args = argparse.Namespace(**{**vars(args),
+                                     "device": str(init_distributed(device=args.device))})
     samples = LOADERS[args.benchmark](args.data_path)
     predictor = build_predictor(args, samples, tokenizer)
     ctx = contextlib.nullcontext()

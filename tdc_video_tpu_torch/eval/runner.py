@@ -14,11 +14,20 @@ questions about one video go through the continuous-batching DecodeEngine
 (`answer_many`, serving/batching.py), and a conversation through one
 resident cache (`chat`, serving/session.py).
 
+Over a device mesh (`mesh`, parallel/mesh.py; one process per device):
+the params are cut to this rank's shard (parallel/sharding.tdc_param_spec:
+the LM tensor-parallel over `model`, every other module whole), the frames
+split over `data` for the towers (the bucket rounded up to a multiple of
+the axis, the pad frames masked) and are gathered back, and compression
+and the LM run on every rank, the LM over `model`; data replicas repeat
+it, as in JAX.  Every rank makes the same call with the same inputs.
+
 Below the predictor: the benchmark helpers of JAX's runner (letter
-extraction, sharding and gathering, accuracy, result files, LVCoT).  The
-port runs one process until multi-device is ported (ROADMAP.md queue 1
-item 5): `shard_samples` and `allgather_records` return their input and
-raise under a torch.distributed group of several ranks.
+extraction, sharding and gathering, accuracy, result files, LVCoT).
+Evaluation is data-parallel over processes, one predictor each:
+`shard_samples` deals the samples round-robin over the ranks of the
+torch.distributed group and `allgather_records` gathers every rank's
+records, rank 0 writing the results.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from ..media import io as media_io
 from ..media.io import window_audio
 from ..model import encode_audio, encode_frames, prepare_multimodal_from_features
 from ..ops.audio import second_groups
+from ..parallel.mesh import DATA_AXIS
 from ..serving.generate import generate_encoded
 
 
@@ -161,7 +171,7 @@ class PredictorStats:
 
 class TDCPredictor:
     """Single-video QA through the full pipeline, on `device` (CUDA unless
-    the caller passes device="cpu")."""
+    the caller passes device="cpu"), or on each rank of `mesh` (its device)."""
 
     def __init__(
         self,
@@ -179,8 +189,18 @@ class TDCPredictor:
         act_quant: bool = False,  # s8 x s8 prefill (with int8 weights)
         spec_window: int = 0,  # >= 2: prompt-lookup speculative decode
         spec_ngram: int = 3,
+        mesh=None,  # parallel.mesh.Mesh: frames over `data`, the LM over `model`
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            from ..models.lm import tp_size
+            from ..parallel.sharding import shard_tree, tdc_param_spec
+
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            tp_size(cfg.lm, mesh)
+            params = shard_tree(params, tdc_param_spec(params), mesh)
         self.params = params
         self.tok = tokenizer
         self.bert_tok = bert_tokenizer
@@ -191,7 +211,7 @@ class TDCPredictor:
         # False: the host path, bit for bit the reference's processor chain;
         # True: pad, resize and normalise on the device (within tolerance)
         self.device_preprocess = device_preprocess
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.kv_quant = kv_quant
         self.act_quant = act_quant
         self.spec_window = spec_window
@@ -203,10 +223,15 @@ class TDCPredictor:
     def encode_video(self, frames: np.ndarray, cache_key=None):
         """uint8 frames [n, h, w, 3] -> (frame_feats [T, P, H], dino_feats,
         frame_mask [T] bool, T), T the frame bucket; padded frames are
-        masked.  Cached under `cache_key` (one video)."""
+        masked.  Cached under `cache_key` (one video).  Under a mesh T is
+        rounded up to a multiple of the data axis, whose ranks encode a
+        share each (model.encode_frames)."""
         if cache_key is not None and self._feat_cache[0] == cache_key:
             return self._feat_cache[1]
         T = frame_bucket(len(frames))
+        if self.mesh is not None:
+            d = self.mesh.size(DATA_AXIS)
+            T = -(-T // d) * d
         if self.device_preprocess:
             pad = T - len(frames)
             u8 = np.concatenate([frames, np.zeros((pad,) + frames.shape[1:], frames.dtype)]) \
@@ -218,7 +243,7 @@ class TDCPredictor:
             sig, dino, fmask = pad_frames(sig, dino, T)
             sig, dino = (torch.from_numpy(x).to(self.device) for x in (sig, dino))
         ff, df = encode_frames(self.cfg, self.params, sig.to(self.cfg.dtype),
-                               dino.to(self.cfg.dtype), attn_impl=self.attn_impl)
+                               dino.to(self.cfg.dtype), attn_impl=self.attn_impl, mesh=self.mesh)
         out = (ff, df, fmask, T)
         if cache_key is not None:
             self._feat_cache = (cache_key, out)
@@ -311,7 +336,7 @@ class TDCPredictor:
         toks = generate_encoded(self.cfg, self.params, **req["gen"], attn_impl=self.attn_impl,
                                 timings=timings, kv_quant=self.kv_quant,
                                 act_quant=self.act_quant, spec_window=self.spec_window,
-                                spec_ngram=self.spec_ngram)
+                                spec_ngram=self.spec_ngram, mesh=self.mesh)
         ids = _trim_generated(toks[0].tolist(), self.cfg.lm)
         st = self.stats
         st.samples += 1
@@ -334,7 +359,7 @@ class TDCPredictor:
             question, qf = question
         req = self.prepare(frames, question, qf, wav, frame_seconds, video_uid=video_uid)
         gen = {k: v for k, v in req["gen"].items() if k != "max_new_tokens"}
-        mm = prepare_multimodal_from_features(self.cfg, self.params, **gen)
+        mm = prepare_multimodal_from_features(self.cfg, self.params, **gen, mesh=self.mesh)
         Lb = int(np.ceil(max(int(mm["seq_len"][0]), 1) / 128) * 128)
         return mm["embeds"][:, :Lb], mm["attn_mask"][:, :Lb], np.asarray(req["ids"], np.int32)
 
@@ -411,7 +436,7 @@ class TDCPredictor:
                                attn_impl=self.attn_impl, kv_quant=kvq, act_quant=self.act_quant,
                                spec_window=spec_window, spec_ngram=self.spec_ngram,
                                prefill_chunk=prefill_chunk, on_tokens=on_tokens,
-                               device=self.device)
+                               mesh=self.mesh, device=self.device)
         else:
             eng.reset(on_tokens=on_tokens)
         # LRU: the 2 most recent shapes stay (each holds a slots x capacity cache)
@@ -463,33 +488,38 @@ class TDCPredictor:
 # -- benchmark helpers ---------------------------------------------------------
 
 
+def _world() -> Tuple[int, int]:
+    """(rank, world size) of the torch.distributed group, (0, 1) without."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def process_rank() -> int:
     """This process's rank: 0 unless a torch.distributed group is up."""
-    import torch.distributed as dist
-
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-
-
-def _one_process(what: str) -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(f"{what} over {dist.get_world_size()} ranks: multi-device "
-                                  "eval is not ported (ROADMAP.md queue 1 item 5)")
+    return _world()[0]
 
 
 def shard_samples(samples: List[Any]) -> List[Any]:
-    """This process's share of the samples (JAX: round-robin over hosts):
-    all of them, in one process."""
-    _one_process("shard_samples")
-    return samples
+    """This process's share of the samples: round-robin over the ranks
+    (JAX: over hosts; replaces IterableDatasetShard)."""
+    rank, world = _world()
+    return samples[rank::world]
 
 
 def allgather_records(records: List[dict]) -> List[dict]:
-    """Every process's records (JAX: process_allgather of their JSON):
-    this process's, in one process."""
-    _one_process("allgather_records")
-    return records
+    """Every rank's records, rank 0's first (JAX :715-733): each rank's
+    JSON gathered over the whole group, so every rank gets the same list."""
+    import torch.distributed as dist
+
+    _, world = _world()
+    if world == 1:
+        return records
+    got: List[Any] = [None] * world
+    dist.all_gather_object(got, json.dumps(records))
+    return [r for payload in got for r in json.loads(payload)]
 
 
 def accuracy_by_task(records: List[dict]) -> Dict[str, float]:

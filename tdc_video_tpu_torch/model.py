@@ -34,6 +34,7 @@ from .models.vit import init_vit, vit_forward
 from .ops.audio import kaldi_fbank, pool_seconds_to_frames, window_to_seconds
 from .ops.pooling import adaptive_pool_matrix
 from .ops.segment import segment_boundaries
+from .parallel.mesh import DATA_AXIS
 
 Params = Any
 
@@ -90,6 +91,7 @@ def encode_frames(
     remat: bool = False,
     *,
     frame_indices: Optional[torch.Tensor] = None,  # [T] time indices, for frame_pos
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (frame_feats [T, P, H_lm], dino_feats [T, 576, C_dino]).
     With cfg.compression.frame_pos and frame_indices, each frame's tokens
@@ -97,7 +99,24 @@ def encode_frames(
     (training) runs the SVA in checkpointed chunks of 16 frames,
     so the backward keeps one chunk's SVA internals at a time (JAX
     :132-155).  The towers get no checkpoint, as in JAX: frozen, they build
-    no graph at all (their inputs are data)."""
+    no graph at all (their inputs are data).
+
+    mesh: the T frames split over its `data` axis (which must divide T):
+    this rank encodes its contiguous share, and an all_gather over `data`
+    gives every rank the whole result (the towers and the SVA are per-frame
+    compute, so the numbers are those of one encode of all T frames)."""
+    if mesh is not None and mesh.size(DATA_AXIS) > 1:
+        if remat:
+            raise NotImplementedError("encode over a mesh has no backward (slice 13)")
+        n, T = mesh.size(DATA_AXIS), siglip_px.shape[0]
+        if T % n:
+            raise ValueError(f"data axis {n} does not divide {T} frames")
+        d = mesh.coords[DATA_AXIS]
+        share = slice(d * (T // n), (d + 1) * (T // n))
+        ff, df = encode_frames(cfg, params, siglip_px[share], dino_px[share], attn_impl,
+                               frame_indices=None if frame_indices is None
+                               else frame_indices[share])
+        return mesh.all_gather(ff, DATA_AXIS), mesh.all_gather(df, DATA_AXIS)
     dt = cfg.dtype
     dino_feats = vit_forward(cfg.dino, params["dino"], dino_px, attn_impl=attn_impl, dtype=dt)
     siglip_feats = vit_forward(cfg.siglip, params["siglip"], siglip_px, attn_impl=attn_impl, dtype=dt)
@@ -200,6 +219,7 @@ def prepare_multimodal_inputs(
     max_visual_len: int = 2048,
     attn_impl: str = "xla",
     remat_encode: bool = False,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Encode every frame of the batch as one tower batch, then compress and
     splice (JAX :250-341): dict(embeds [B, max_len, H], attn_mask, labels,
@@ -226,14 +246,14 @@ def prepare_multimodal_inputs(
     flat_dino = dino_px.reshape((B * T,) + dino_px.shape[2:])
     frame_feats, dino_feats = encode_frames(
         cfg, params, flat_sig, flat_dino, attn_impl=attn_impl, remat=remat_encode,
-        frame_indices=None if frame_indices is None else frame_indices.reshape(B * T))
+        frame_indices=None if frame_indices is None else frame_indices.reshape(B * T), mesh=mesh)
     P = frame_feats.shape[1]
     return prepare_multimodal_from_features(
         cfg, params, input_ids, image_pos, frame_feats.reshape(B, T, P, -1),
         dino_feats.reshape(B, T, dino_feats.shape[1], -1), frame_mask, qformer_text_ids,
         qformer_text_mask, audio_tokens=audio_tokens, labels=labels, text_len=text_len,
         has_image=has_image, token_valid=token_valid, query_pool=query_pool, max_len=max_len,
-        max_visual_len=max_visual_len, remat_encode=remat_encode,
+        max_visual_len=max_visual_len, remat_encode=remat_encode, mesh=mesh,
     )
 
 
@@ -256,6 +276,7 @@ def prepare_multimodal_from_features(
     max_len: int = 4096,
     max_visual_len: int = 2048,
     remat_encode: bool = False,
+    mesh=None,  # tensor-parallel embedding lookup (models/lm.embed_tokens)
 ) -> Dict[str, torch.Tensor]:
     """Compression + splice over pre-encoded frames.  JAX vmaps over the
     batch; here compression loops over the samples (each has its own
@@ -286,7 +307,7 @@ def prepare_multimodal_from_features(
         v, nv = checkpoint(one, *args, use_reentrant=False) if remat_encode else one(*args)
         vis.append(v)
         nvis.append(nv)
-    text_embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype)
+    text_embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype, mesh)
     visual = torch.stack(vis).to(text_embeds.dtype)
     if text_len is None:
         text_len = torch.full((B,), input_ids.shape[1], dtype=torch.int32, device=dev)

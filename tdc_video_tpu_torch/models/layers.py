@@ -22,6 +22,8 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import MODEL_AXIS
+
 Params = Any
 
 
@@ -188,13 +190,49 @@ def gelu_mlp(p: Params, x: torch.Tensor, approximate: bool = True) -> torch.Tens
     return linear(p["fc2"], h)
 
 
-def swiglu_mlp(p: Params, x: torch.Tensor, act_quant: bool = False) -> torch.Tensor:
+def row_amax(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Per-row amax [..., 1] (f32) of an activation whose last dim is split
+    over the mesh's model axis: the MAX over the axis of each rank's amax,
+    which is the unsharded row's (what GSPMD computes)."""
+    amax = x.float().abs().amax(dim=-1, keepdim=True)
+    return mesh.all_reduce(amax, MODEL_AXIS, op="max")
+
+
+def row_parallel_linear(p: Params, x: torch.Tensor, mesh=None,
+                        act_quant: bool = False) -> torch.Tensor:
+    """`linear` of a weight whose input dim is split over the mesh's model
+    axis (o_proj and down under tensor parallelism): each rank's product of
+    its slice of x with its rows of the weight, summed over the axis, then
+    the bias once.  With act_quant and int8 weights, x is quantized with
+    the whole row's scale (row_amax): a rank's own amax would give another
+    scale than the unsharded model's.  A weight-only int8 `w_scale` scales
+    output channels, so it applies to each partial product before the sum.
+    mesh None (or a model axis of 1) is `linear`."""
+    if mesh is None or mesh.size(MODEL_AXIS) == 1:
+        return linear(p, x, act_quant=act_quant)
+    if "lora_a" in p:
+        raise NotImplementedError("LoRA adapters under tensor parallelism (slice 13)")
+    local = {k: v for k, v in p.items() if k != "b"}
+    if act_quant and "w_q" in p:
+        scale = torch.clamp_min(row_amax(x, mesh) / 127.0, 1e-8)
+        y = int8_dot(*int8_qact(x, scale), local, x.dtype)
+    else:
+        y = linear(local, x)
+    y = mesh.all_reduce(y.contiguous(), MODEL_AXIS)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def swiglu_mlp(p: Params, x: torch.Tensor, act_quant: bool = False, mesh=None) -> torch.Tensor:
+    """down(silu(gate(x)) * up(x)); under a mesh, gate and up hold this
+    rank's I/n columns and down its I/n rows (row_parallel_linear)."""
     if act_quant and "w_q" in p["gate"]:
         # one shared activation quantization feeds both gate and up
         xq, xs = int8_qact(x)
         h = F.silu(int8_dot(xq, xs, p["gate"], x.dtype)) * int8_dot(xq, xs, p["up"], x.dtype)
-        return linear(p["down"], h, act_quant=True)
-    return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
+        return row_parallel_linear(p["down"], h, mesh, act_quant=True)
+    return row_parallel_linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,18 @@ commits it (shared-prefix and chunked admission), and decode_step's
 Training: `lm_forward` and `lm_loss` (chunked cross-entropy), with
 `remat=True` checkpointing each layer (torch.utils.checkpoint in place of
 jax.checkpoint).
+
+Tensor parallelism (`mesh`, parallel/mesh.py): the serving entry points
+take the mesh explicitly and run on this rank's shard of the params
+(parallel/sharding.lm_param_spec): num_heads/n query and num_kv_heads/n KV
+heads a rank (a contiguous split, so a rank's query heads map onto its own
+KV heads under GQA), a sum over `model` after o_proj and after the MLP's
+down projection (layers.row_parallel_linear), the vocabulary-split
+embedding looked up where a rank holds the id and summed (exact), and the
+head's logits over each rank's vocabulary slice gathered in rank order, so
+that every rank holds the full f32 logits and takes the same token.  The
+cache holds num_kv_heads/n heads a rank (kv_cache_spec).  mesh=None is
+the one-device code.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LMConfig
 from ..device import resolve_device
+from ..parallel.mesh import MODEL_AXIS
 from .attention import attention
 from .layers import (
     apply_rope,
@@ -44,6 +57,7 @@ from .layers import (
     rms_norm,
     rope_cos_sin,
     rope_inv_freq,
+    row_parallel_linear,
     sdpa_int8kv,
     swiglu_mlp,
 )
@@ -99,13 +113,27 @@ def init_lm(cfg: LMConfig, gen: torch.Generator, device=None, dtype=torch.float3
 # ---------------------------------------------------------------------------
 
 
+def tp_size(cfg: LMConfig, mesh=None) -> int:
+    """The model axis's size n, checked against the LM: n must divide the
+    query and KV head counts and the vocabulary (the port does not pad an
+    uneven split, where JAX would)."""
+    n = 1 if mesh is None else mesh.size(MODEL_AXIS)
+    for what, count in (("query heads", cfg.num_heads), ("KV heads", cfg.num_kv_heads),
+                        ("vocabulary", cfg.vocab_size)):
+        if count % n:
+            raise ValueError(f"model axis {n} does not divide the {count} {what}")
+    return n
+
+
 def init_kv_cache(cfg: LMConfig, batch: int, capacity: int, dtype=torch.bfloat16,
-                  device=None, quant: Optional[str] = None) -> Dict:
+                  device=None, quant: Optional[str] = None, mesh=None) -> Dict:
     """Fixed-capacity KV cache [L, B, S, Hkv, D].  quant="int8" stores K/V as
     int8 with f32 per-token-per-head scales [L, B, S, Hkv]: quantized at
-    write, read through layers.sdpa_int8kv."""
-    device = resolve_device(device)
-    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+    write, read through layers.sdpa_int8kv.  Under a mesh, this rank's
+    num_kv_heads/n heads on the mesh's device."""
+    device = resolve_device(device if mesh is None else mesh.device)
+    heads = cfg.num_kv_heads // tp_size(cfg, mesh)
+    shape = (cfg.num_layers, batch, capacity, heads, cfg.head_dim)
     if quant == "int8":
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -152,6 +180,7 @@ def _layer_forward(
     causal: bool = False,
     act_quant: bool = False,
     verify: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     B, T, _ = x.shape
     h = rms_norm(p["input_norm"], x, cfg.rms_norm_eps)
@@ -161,9 +190,10 @@ def _layer_forward(
         q, k, v = (int8_dot(hq, hs, p[n], x.dtype) for n in ("q_proj", "k_proj", "v_proj"))
     else:
         q, k, v = (linear(p[n], h) for n in ("q_proj", "k_proj", "v_proj"))
-    q = apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim), cos, sin)
-    k = apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim), cos, sin)
-    v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    # this rank's heads: all of them, or num_heads/n and num_kv_heads/n under TP
+    q = apply_rope(q.reshape(B, T, -1, cfg.head_dim), cos, sin)
+    k = apply_rope(k.reshape(B, T, -1, cfg.head_dim), cos, sin)
+    v = v.reshape(B, T, -1, cfg.head_dim)
     b_idx = None if cache_k is None else torch.arange(B, device=x.device)[:, None]
     if isinstance(cache_k, tuple):
         # int8 cache: quantize at write; never a dequantized cache
@@ -190,9 +220,9 @@ def _layer_forward(
             k, v = cache_k, cache_v
         attn = attention(q, k.to(q.dtype), v.to(q.dtype), attn_mask, impl=attn_impl,
                          causal=causal)
-    x = x + linear(p["o_proj"], attn.reshape(B, T, cfg.q_dim), act_quant=act_quant)
+    x = x + row_parallel_linear(p["o_proj"], attn.reshape(B, T, -1), mesh, act_quant=act_quant)
     h2 = rms_norm(p["post_attn_norm"], x, cfg.rms_norm_eps)
-    return x + swiglu_mlp(p["mlp"], h2, act_quant=act_quant)
+    return x + swiglu_mlp(p["mlp"], h2, act_quant=act_quant, mesh=mesh)
 
 
 def lm_backbone(
@@ -209,13 +239,15 @@ def lm_backbone(
     remat: bool = False,
     act_quant: bool = False,
     verify: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Run the decoder stack; returns (final hidden [B,T,H], cache).
     remat=True (training) checkpoints each layer: the backward keeps only the
     layer inputs and recomputes each layer's internals (JAX :241-242).
     verify=True marks a multi-token step over a non-empty cache (speculative
     verify), which reads the whole cache rather than treating T > 1 as a
-    single-shot prefill."""
+    single-shot prefill.  mesh: tensor-parallel over its model axis; a
+    stacked layer axis split over `data` (FSDP) raises."""
     x = inputs_embeds.to(dtype)
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device)
     cos, sin = rope_cos_sin(positions, inv_freq)
@@ -223,6 +255,12 @@ def lm_backbone(
     if remat:
         layer_fn = functools.partial(checkpoint, layer_fn, use_reentrant=False)
     layers = params["layers"]
+    if mesh is not None and not isinstance(layers, list):
+        n_stacked = layers["input_norm"]["scale"].shape[0]
+        if n_stacked != cfg.num_layers:
+            raise NotImplementedError(
+                f"{n_stacked} of {cfg.num_layers} stacked layers: a layer axis split over "
+                "`data` (FSDP) is not run yet (ROADMAP.md queue 1, slice 13)")
     int8_kv = cache is not None and "k_scale" in cache
     for i in range(cfg.num_layers):
         lp = layer_params(layers, i)
@@ -232,7 +270,7 @@ def lm_backbone(
         elif cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
         x = layer_fn(lp, x, cos, sin, attn_mask, ck, cv, write_pos, attn_impl, causal, act_quant,
-                     verify)
+                     verify, mesh)
     return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
 
 
@@ -247,9 +285,21 @@ def layer_params(layers, i: int):
     return layers[i] if isinstance(layers, list) else _tree_index(layers, i)
 
 
-def embed_tokens(cfg: LMConfig, params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16):
+def embed_tokens(cfg: LMConfig, params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16,
+                 mesh=None):
+    """Token embeddings [..., H].  Under TP each rank holds a contiguous
+    V/n-row slice of the table: it looks up the ids that fall in it, zeros
+    elsewhere, and the sum over `model` is the full lookup (one rank
+    contributes each row: exact)."""
     ids = input_ids.long().clamp(0, cfg.vocab_size - 1)  # guard sentinel ids (<image>=-200)
-    return params["embed"]["embedding"].to(dtype)[ids]
+    table = params["embed"]["embedding"].to(dtype)
+    if tp_size(cfg, mesh) == 1:
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - mesh.coords[MODEL_AXIS] * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0)
+    return mesh.all_reduce(x, MODEL_AXIS)
 
 
 def head_weight(cfg: LMConfig, params: Params, dtype
@@ -266,14 +316,19 @@ def head_weight(cfg: LMConfig, params: Params, dtype
     return master.to(dtype), master
 
 
-def lm_head(cfg: LMConfig, params: Params, hidden: torch.Tensor, head=None) -> torch.Tensor:
+def lm_head(cfg: LMConfig, params: Params, hidden: torch.Tensor, head=None,
+            mesh=None) -> torch.Tensor:
     """f32 logits [B, T, V] (layers.dot_f32).  `head`: head_weight's pair,
-    when the caller casts the weight once for many calls (lm_loss)."""
+    when the caller casts the weight once for many calls (lm_loss).  Under
+    TP each rank's logits over its vocabulary slice, gathered over `model`
+    in rank order: every rank gets the full logits."""
     w, master = head_weight(cfg, params, hidden.dtype) if head is None else head
     y = dot_f32(hidden, w, master)
     if master is None:  # weight-only int8 head
         y = y * params["lm_head"]["w_scale"]
-    return y
+    if tp_size(cfg, mesh) == 1:
+        return y
+    return mesh.all_gather(y, MODEL_AXIS, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +432,7 @@ def prefill(
     attn_impl: str = "xla",
     dtype=torch.bfloat16,
     act_quant: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Prefill the cache; returns (last-token logits [B, V], cache).  The
     attention runs over the whole capacity-S cache with causal=True: query i
@@ -395,12 +451,12 @@ def prefill(
     mask = causal & key_valid[:, None, None, :]
     hidden, cache = lm_backbone(cfg, params, inputs_embeds, positions, mask, cache=cache,
                                 write_pos=write_pos, attn_impl=attn_impl, dtype=dtype,
-                                causal=True, act_quant=act_quant)
+                                causal=True, act_quant=act_quant, mesh=mesh)
     lengths = am.to(torch.int32).sum(-1)
     cache["mask"][:, :T] = am
     cache["lengths"] = lengths
     last = hidden[torch.arange(B, device=dev), (lengths - 1).long()][:, None]  # [B,1,H]
-    return lm_head(cfg, params, last)[:, 0], cache
+    return lm_head(cfg, params, last, mesh=mesh)[:, 0], cache
 
 
 def decode_step(
@@ -411,6 +467,7 @@ def decode_step(
     attn_impl: str = "xla",
     dtype=torch.bfloat16,
     active: Optional[torch.Tensor] = None,  # [B] bool; inactive slots keep mask and lengths
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One autoregressive step; writes at per-sample `lengths`, returns logits [B, V].
     `active` (continuous batching, serving/batching.py): inactive slots still
@@ -427,14 +484,14 @@ def decode_step(
     step_mask[torch.arange(B, device=dev), slot] = True
     hidden, cache = lm_backbone(cfg, params, token_embeds, positions, step_mask[:, None, None, :],
                                 cache=cache, write_pos=write_pos, attn_impl=attn_impl,
-                                dtype=dtype)
+                                dtype=dtype, mesh=mesh)
     if active is None:
         cache["mask"] = step_mask
         cache["lengths"] = lengths + 1
     else:
         cache["mask"] = torch.where(active[:, None], step_mask, cache["mask"])
         cache["lengths"] = lengths + active.to(lengths.dtype)
-    return lm_head(cfg, params, hidden)[:, 0], cache
+    return lm_head(cfg, params, hidden, mesh=mesh)[:, 0], cache
 
 
 def verify_step(
@@ -444,6 +501,7 @@ def verify_step(
     cache: Dict,
     attn_impl: str = "xla",
     dtype=torch.bfloat16,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """K-token step for speculative decoding (serving/speculative.py): window
     token j sits at position lengths+j and attends every valid cache slot
@@ -452,11 +510,11 @@ def verify_step(
     commit_verified commits the accepted prefix, and rejected slots are
     garbage above `lengths` that the next window overwrites.  Needs
     lengths + K <= capacity.  Returns (logits [B, K, V], cache)."""
-    hidden, cache = _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype)
-    return lm_head(cfg, params, hidden), cache
+    hidden, cache = _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype, mesh)
+    return lm_head(cfg, params, hidden, mesh=mesh), cache
 
 
-def _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype):
+def _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype, mesh=None):
     """Forward a K-token window at the per-sample cache tails, its K/V
     written above `lengths` and not committed.  Returns (hidden, cache)."""
     B, K, _ = token_embeds.shape
@@ -471,7 +529,8 @@ def _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype):
     window = (col >= start) & (col <= start + offs[..., None])  # [B, K, S]
     attn_mask = (cache["mask"][:, None, :] | window)[:, None]  # [B, 1, K, S]
     return lm_backbone(cfg, params, token_embeds, positions, attn_mask, cache=cache,
-                       write_pos=write_pos, attn_impl=attn_impl, dtype=dtype, verify=True)
+                       write_pos=write_pos, attn_impl=attn_impl, dtype=dtype, verify=True,
+                       mesh=mesh)
 
 
 def commit_verified(cache: Dict, accept: torch.Tensor) -> Dict:
@@ -495,6 +554,7 @@ def extend_prefill(
     cache: Dict,
     attn_impl: str = "xla",
     dtype=torch.bfloat16,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Continue a prefill from the cache tail: one forward of a K-token
     suffix over an already-prefilled cache (verify_step's window), then
@@ -504,7 +564,7 @@ def extend_prefill(
     cache in place (copy a donor first to keep it).  Needs lengths + K <=
     capacity.  Returns (logits [B, V] at the last valid suffix token,
     cache)."""
-    hidden, cache = _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype)
+    hidden, cache = _window_forward(cfg, params, token_embeds, cache, attn_impl, dtype, mesh)
     idx = (n_valid - 1).clamp_min(0).long()
     last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx][:, None]
-    return lm_head(cfg, params, last)[:, 0], commit_verified(cache, n_valid)
+    return lm_head(cfg, params, last, mesh=mesh)[:, 0], commit_verified(cache, n_valid)

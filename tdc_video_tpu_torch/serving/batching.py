@@ -26,6 +26,18 @@ admission, so that choosing a slot and deciding to stop never sync.
 The port's caches are written in place (models/lm.py), where JAX's are
 functional: a stored prefix (donor) is copied before each extend, and
 snapshots are copies, never views of a slot that will be reused.
+
+mesh (parallel/mesh.py): the LM runs tensor-parallel over the mesh's
+model axis on this rank's shard of the params, and every cache (the
+shared one, each batch-1 prefill, chunk and prefix donor) holds this
+rank's num_kv_heads/n heads (kv_cache_spec).  Every rank runs the same
+engine on the same requests and takes the same admission and harvest
+decisions from the same host state: the logits are whole on every rank
+(models/lm.lm_head), so are the tokens, and the one device-to-host read
+per chunk is one per rank.  Timeouts are the one input that differs
+between ranks (each reads its own clock): when a live request has one,
+the ranks agree on each chunk boundary's expiries (a MAX over the mesh).
+cancel() must be called on every rank.
 """
 
 from __future__ import annotations
@@ -164,8 +176,6 @@ class DecodeEngine:
         on_tokens=None,  # callable(req, new_token_ids): token streaming
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported")
         if prefill_chunk < 0 or prefill_chunk > capacity:
             raise ValueError(f"prefill_chunk {prefill_chunk} not in [0, {capacity}]")
         self.cfg = cfg
@@ -179,9 +189,9 @@ class DecodeEngine:
         self.spec_window = spec_window
         self.spec_ngram = spec_ngram
         self.prefill_chunk = prefill_chunk
-        self.device = resolve_device(device)
-        self.cache = lm_mod.init_kv_cache(cfg.lm, num_slots, capacity, cfg.dtype,
-                                          device=self.device, quant=kv_quant)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self.cache = self._new_cache(num_slots, capacity)
         self._eos = torch.tensor(cfg.lm.eos_token_ids, dtype=torch.int32, device=self.device)
         if spec_window >= 2:
             # per-slot draft history: prompt ids (<= capacity) + generated
@@ -228,23 +238,26 @@ class DecodeEngine:
     def _lm(self):
         return self.cfg.lm, self.params["lm"]
 
+    def _new_cache(self, batch: int, capacity: int) -> Dict:
+        """A zeroed cache on the engine's device (this rank's KV heads under
+        a mesh)."""
+        return lm_mod.init_kv_cache(self.cfg.lm, batch, capacity, self.cfg.dtype,
+                                    device=self.device, quant=self.kv_quant, mesh=self.mesh)
+
     def _prefill_one(self, embeds, attn_mask, L: int):
         lm_cfg, lm_p = self._lm()
-        cache1 = lm_mod.init_kv_cache(lm_cfg, 1, L, self.cfg.dtype, device=self.device,
-                                      quant=self.kv_quant)
-        logits, cache1 = lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask, cache1,
+        logits, cache1 = lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask, self._new_cache(1, L),
                                         attn_impl=self.attn_impl, dtype=self.cfg.dtype,
-                                        act_quant=self.act_quant)
+                                        act_quant=self.act_quant, mesh=self.mesh)
         return torch.argmax(logits, -1).to(torch.int32), logits, cache1
 
     def _prefill_prefix(self, embeds, attn_mask):
         """Prefill a shared prefix into a batch-1 cache at the engine's full
         capacity, so that suffixes can extend it."""
         lm_cfg, lm_p = self._lm()
-        cache1 = lm_mod.init_kv_cache(lm_cfg, 1, self.capacity, self.cfg.dtype,
-                                      device=self.device, quant=self.kv_quant)
-        return lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask, cache1, attn_impl=self.attn_impl,
-                              dtype=self.cfg.dtype, act_quant=self.act_quant)[1]
+        return lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask, self._new_cache(1, self.capacity),
+                              attn_impl=self.attn_impl, dtype=self.cfg.dtype,
+                              act_quant=self.act_quant, mesh=self.mesh)[1]
 
     def _extend_one(self, suffix_embeds, n_valid: int, cache1: Dict):
         """Extend cache1 (owned by the caller; written in place) by a suffix;
@@ -252,15 +265,16 @@ class DecodeEngine:
         lm_cfg, lm_p = self._lm()
         nv = torch.full((1,), n_valid, dtype=torch.int32, device=self.device)
         logits, cache1 = lm_mod.extend_prefill(lm_cfg, lm_p, suffix_embeds, nv, cache1,
-                                               attn_impl=self.attn_impl, dtype=self.cfg.dtype)
+                                               attn_impl=self.attn_impl, dtype=self.cfg.dtype,
+                                               mesh=self.mesh)
         return torch.argmax(logits, -1).to(torch.int32), logits, cache1
 
     def _step(self, tok, active):
         lm_cfg, lm_p = self._lm()
-        embeds = lm_mod.embed_tokens(lm_cfg, lm_p, tok[:, None], self.cfg.dtype)
+        embeds = lm_mod.embed_tokens(lm_cfg, lm_p, tok[:, None], self.cfg.dtype, self.mesh)
         logits, self.cache = lm_mod.decode_step(lm_cfg, lm_p, embeds, self.cache,
                                                 attn_impl=self.attn_impl, dtype=self.cfg.dtype,
-                                                active=active)
+                                                active=active, mesh=self.mesh)
         return logits
 
     def _decode_chunk(self, sampled: bool):
@@ -304,10 +318,10 @@ class DecodeEngine:
         for _ in range(self.chunk_tokens):
             draft, _ = propose_ngram(hist, hist_len, self.spec_ngram, K - 1)
             tokens = torch.cat([tok[:, None], draft], dim=1)
-            embeds = lm_mod.embed_tokens(lm_cfg, lm_p, tokens, self.cfg.dtype)
+            embeds = lm_mod.embed_tokens(lm_cfg, lm_p, tokens, self.cfg.dtype, self.mesh)
             logits, self.cache = lm_mod.verify_step(lm_cfg, lm_p, embeds, self.cache,
                                                     attn_impl=self.attn_impl,
-                                                    dtype=self.cfg.dtype)
+                                                    dtype=self.cfg.dtype, mesh=self.mesh)
             if sampled:
                 e, m, eos_emitted = accept_and_emit_sampled(
                     logits, draft, self._eos, budget, ~active, self._temp, self._topk,
@@ -393,8 +407,19 @@ class DecodeEngine:
     def _expired(self, req: Request) -> bool:
         return req.timeout_s is not None and (_time.perf_counter() - req.submit_t > req.timeout_s)
 
+    def _dead(self, reqs: List[Request]) -> List[bool]:
+        """Whether each request is cancelled or past its timeout.  Under a
+        mesh of several ranks, when any of them has a timeout, the ranks
+        agree: a request is dead where any rank found it so."""
+        flags = [r.cancelled or self._expired(r) for r in reqs]
+        if (self.mesh is not None and self.mesh.size() > 1
+                and any(r.timeout_s is not None for r in reqs)):
+            t = torch.tensor(flags, dtype=torch.int32, device=self.device)
+            flags = [bool(x) for x in self.mesh.all_reduce(t, None, op="max").tolist()]
+        return flags
+
     def _finalize_dead(self, req: Request):
-        req.timed_out = req.timed_out or (not req.cancelled and self._expired(req))
+        req.timed_out = req.timed_out or not req.cancelled  # dead and not cancelled: expired
         req.done = True
         self._finished.append(req)
 
@@ -407,22 +432,23 @@ class DecodeEngine:
     def _sweep_dead(self):
         """Release cancelled and timed-out requests wherever they are; runs
         at every chunk boundary."""
+        pending = [] if self._pending is None else [self._pending.req]
+        slots = [s for s in range(self.num_slots) if self._requests[s] is not None]
+        dead = self._dead(self._queue + pending + [self._requests[s] for s in slots])
+        nq = len(self._queue)
         keep = []
-        for r in self._queue:
-            if r.cancelled or self._expired(r):
+        for r, d in zip(self._queue, dead[:nq]):
+            if d:
                 self._finalize_dead(r)
             else:
                 keep.append(r)
         self._queue = keep
-        if self._pending is not None:
-            req = self._pending.req
-            if req.cancelled or self._expired(req):
-                self._finalize_dead(req)
-                self._pending = None  # drop the half-built cache
-        for slot in range(self.num_slots):
-            req = self._requests[slot]
-            if req is not None and (req.cancelled or self._expired(req)):
-                self._finalize_dead(req)
+        if pending and dead[nq]:
+            self._finalize_dead(pending[0])
+            self._pending = None  # drop the half-built cache
+        for slot, d in zip(slots, dead[nq + len(pending):]):
+            if d:
+                self._finalize_dead(self._requests[slot])
                 self._requests[slot] = None
                 self._set_inactive(slot)
 
@@ -435,10 +461,8 @@ class DecodeEngine:
     def _start_pending(self, req: Request, key: Any, n: int):
         """Begin a chunked prefill of embeds[:, :n] (all valid tokens) into a
         capacity-length batch-1 cache."""
-        cache1 = lm_mod.init_kv_cache(self.cfg.lm, 1, self.capacity, self.cfg.dtype,
-                                      device=self.device, quant=self.kv_quant)
         self._pending = _PendingPrefill(req=req, key=key, embeds=req.embeds[:, :n], total=n,
-                                        cache1=cache1)
+                                        cache1=self._new_cache(1, self.capacity))
 
     def _extend_suffix(self, req: Request, donor: Dict):
         """Admit a shared-prefix request: extend a copy of the donor by the

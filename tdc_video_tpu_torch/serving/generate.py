@@ -14,6 +14,11 @@ loop.  Its stop test (every row done) is read back to the host only every
 DONE_CHECK_EVERY steps, not every token: rows already done emit pad, so
 the tokens are the same, and the loop runs at most DONE_CHECK_EVERY - 1
 steps past the last EOS.
+
+`mesh` (parallel/mesh.py) runs the LM tensor-parallel on this rank's
+shard of the params: every rank gets the full logits (models/lm.lm_head),
+so every rank takes the same tokens and the same stop decisions, and no
+rank leaves a collective that another waits in.
 """
 
 from __future__ import annotations
@@ -136,6 +141,7 @@ def decode_loop(
     top_p: float = 1.0,
     key: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
+    mesh=None,
 ) -> Tuple[torch.Tensor, int]:
     """Decode for up to max_new_tokens, greedy or sampled (one key split a
     step, as JAX's loop); stops early once every row has emitted an EOS, as
@@ -156,9 +162,9 @@ def decode_loop(
     while i < max_new_tokens:
         if (i - 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
-        embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], tok[:, None], cfg.dtype)
+        embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], tok[:, None], cfg.dtype, mesh)
         logits, cache = lm_mod.decode_step(cfg.lm, params["lm"], embeds, cache,
-                                           attn_impl=attn_impl, dtype=cfg.dtype)
+                                           attn_impl=attn_impl, dtype=cfg.dtype, mesh=mesh)
         key, sub = prng.split(key)
         nxt = sample_logits(logits, sub, temperature, top_k, top_p)
         nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
@@ -170,16 +176,18 @@ def decode_loop(
 
 
 def _spec_or_plain_decode(cfg, params, cache, first, input_ids, prompt_len, max_new_tokens,
-                          temperature, top_k, top_p, key, attn_impl, spec_window, spec_ngram):
+                          temperature, top_k, top_p, key, attn_impl, spec_window, spec_ngram,
+                          mesh=None):
     """Prompt-lookup speculative decode when spec_window >= 2 and decoding
     is greedy (exact there), else the plain loop.  Returns (tokens, steps)."""
     if spec_window and spec_window >= 2 and temperature == 0.0:
         from .speculative import pld_decode_loop
 
         return pld_decode_loop(cfg, params, cache, first, input_ids, prompt_len, max_new_tokens,
-                               window=spec_window, ngram=spec_ngram, attn_impl=attn_impl)
+                               window=spec_window, ngram=spec_ngram, attn_impl=attn_impl,
+                               mesh=mesh)
     return decode_loop(cfg, params, cache, first, max_new_tokens, temperature=temperature,
-                       top_k=top_k, top_p=top_p, key=key, attn_impl=attn_impl)
+                       top_k=top_k, top_p=top_p, key=key, attn_impl=attn_impl, mesh=mesh)
 
 
 def _sample_first(logits: torch.Tensor, temperature: float = 0.0, top_k: int = 0,
@@ -202,11 +210,12 @@ def _prompt_len(input_ids: torch.Tensor, text_len: Optional[torch.Tensor]) -> to
 
 
 def _decode_from_prefill(cfg, params, input_ids, prompt_len, logits, cache, max_new_tokens,
-                         temperature, top_k, top_p, key, attn_impl, spec_window, spec_ngram):
+                         temperature, top_k, top_p, key, attn_impl, spec_window, spec_ngram,
+                         mesh=None):
     first, key = _sample_first(logits, temperature, top_k, top_p, key)
     return _spec_or_plain_decode(cfg, params, cache, first, input_ids, prompt_len,
                                  max_new_tokens, temperature, top_k, top_p, key, attn_impl,
-                                 spec_window, spec_ngram)
+                                 spec_window, spec_ngram, mesh)
 
 
 def generate(
@@ -235,23 +244,26 @@ def generate(
     act_quant: bool = False,
     spec_window: int = 0,
     spec_ngram: int = 3,
+    mesh=None,
 ) -> torch.Tensor:
     """End-to-end multimodal generation from pixels (the reference main.py:60
-    round trip); returns generated ids [B, max_new_tokens]."""
+    round trip); returns generated ids [B, max_new_tokens].  Under a mesh
+    the frames split over `data` and the LM over `model`."""
     mm = prepare_multimodal_inputs(
         cfg, params, input_ids, image_pos, siglip_px, dino_px, frame_mask, qformer_text_ids,
         qformer_text_mask, audio_tokens=audio_tokens, text_len=text_len, token_valid=token_valid,
         query_pool=query_pool, max_len=max_len, max_visual_len=max_visual_len,
-        attn_impl=attn_impl,
+        attn_impl=attn_impl, mesh=mesh,
     )
     capacity = max_len + max_new_tokens + max(spec_window - 1, 0)
     cache = lm_mod.init_kv_cache(cfg.lm, input_ids.shape[0], capacity, dtype=cfg.dtype,
-                                 device=input_ids.device, quant=kv_quant)
+                                 device=input_ids.device, quant=kv_quant, mesh=mesh)
     logits, cache = lm_mod.prefill(cfg.lm, params["lm"], mm["embeds"], mm["attn_mask"], cache,
-                                   attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant)
+                                   attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant,
+                                   mesh=mesh)
     return _decode_from_prefill(cfg, params, input_ids, _prompt_len(input_ids, text_len), logits,
                                 cache, max_new_tokens, temperature, top_k, top_p, key, attn_impl,
-                                spec_window, spec_ngram)[0]
+                                spec_window, spec_ngram, mesh)[0]
 
 
 def generate_text_only(
@@ -269,20 +281,22 @@ def generate_text_only(
     act_quant: bool = False,
     spec_window: int = 0,
     spec_ngram: int = 3,
+    mesh=None,
 ) -> torch.Tensor:
     """Text-only generation (parity harness and text-only eval rows);
     returns [B, max_new_tokens]."""
     B, L = input_ids.shape
-    embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype)
+    embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype, mesh)
     capacity = L + max_new_tokens + max(spec_window - 1, 0)
     cache = lm_mod.init_kv_cache(cfg.lm, B, capacity, dtype=cfg.dtype, device=input_ids.device,
-                                 quant=kv_quant)
+                                 quant=kv_quant, mesh=mesh)
     logits, cache = lm_mod.prefill(cfg.lm, params["lm"], embeds, attention_mask, cache,
-                                   attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant)
+                                   attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant,
+                                   mesh=mesh)
     prompt_len = attention_mask.to(torch.int32).sum(-1)
     return _decode_from_prefill(cfg, params, input_ids, prompt_len, logits, cache, max_new_tokens,
                                 temperature, top_k, top_p, key, attn_impl, spec_window,
-                                spec_ngram)[0]
+                                spec_ngram, mesh)[0]
 
 
 def prefill_encoded(
@@ -306,6 +320,7 @@ def prefill_encoded(
     kv_quant: Optional[str] = None,
     act_quant: bool = False,
     spec_window: int = 0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Compression + splice + LM prefill into a cache (int8 with
     kv_quant="int8") of capacity max_len + max_new_tokens, plus
@@ -315,14 +330,14 @@ def prefill_encoded(
         cfg, params, input_ids, image_pos, frame_feats, dino_feats, frame_mask,
         qformer_text_ids, qformer_text_mask, audio_tokens=audio_tokens, text_len=text_len,
         token_valid=token_valid, query_pool=query_pool, max_len=max_len,
-        max_visual_len=max_visual_len,
+        max_visual_len=max_visual_len, mesh=mesh,
     )
     B = input_ids.shape[0]
     capacity = max_len + max_new_tokens + max(spec_window - 1, 0)
     cache = lm_mod.init_kv_cache(cfg.lm, B, capacity, dtype=cfg.dtype, device=input_ids.device,
-                                 quant=kv_quant)
+                                 quant=kv_quant, mesh=mesh)
     return lm_mod.prefill(cfg.lm, params["lm"], mm["embeds"], mm["attn_mask"], cache,
-                          attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant)
+                          attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant, mesh=mesh)
 
 
 def generate_encoded(
@@ -352,6 +367,7 @@ def generate_encoded(
     act_quant: bool = False,  # s8 x s8 prefill projections (int8 weights)
     spec_window: int = 0,  # >= 2: prompt-lookup speculative decode (greedy)
     spec_ngram: int = 3,
+    mesh=None,  # tensor-parallel LM over the mesh's model axis
 ) -> torch.Tensor:
     """Generation over pre-encoded frames; returns [B, max_new_tokens].
     `timings`, when given, receives prefill_s (compression + splice +
@@ -363,14 +379,14 @@ def generate_encoded(
         qformer_text_ids, qformer_text_mask, audio_tokens=audio_tokens, text_len=text_len,
         token_valid=token_valid, query_pool=query_pool, max_new_tokens=max_new_tokens,
         max_len=max_len, max_visual_len=max_visual_len, attn_impl=attn_impl, kv_quant=kv_quant,
-        act_quant=act_quant, spec_window=spec_window,
+        act_quant=act_quant, spec_window=spec_window, mesh=mesh,
     )
     if timings is not None:
         synchronize(logits.device)
         t1 = time.perf_counter()
     out, steps = _decode_from_prefill(cfg, params, input_ids, _prompt_len(input_ids, text_len),
                                       logits, cache, max_new_tokens, temperature, top_k, top_p,
-                                      key, attn_impl, spec_window, spec_ngram)
+                                      key, attn_impl, spec_window, spec_ngram, mesh)
     if timings is not None:
         synchronize(out.device)
         timings.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1, decode_steps=steps)

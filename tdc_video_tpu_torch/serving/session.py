@@ -13,6 +13,9 @@ and the final or EOS token never is).  Request.kv_len is the committed
 length; the next turn feeds the uncommitted tail before its own tokens, so
 the cache holds exactly what a from-scratch prefill of the whole
 conversation would build.
+
+A predictor with a mesh runs the session over it (every rank asks the same
+questions): the embeddings and the engine take the predictor's mesh.
 """
 
 from __future__ import annotations
@@ -108,7 +111,7 @@ class ChatSession:
     def _embed_ids(self, ids: np.ndarray) -> torch.Tensor:
         cfg = self.p.cfg
         t = torch.from_numpy(np.asarray(ids, np.int64)[None]).to(self.p.device)
-        return lm_mod.embed_tokens(cfg.lm, self.p.params["lm"], t, cfg.dtype)
+        return lm_mod.embed_tokens(cfg.lm, self.p.params["lm"], t, cfg.dtype, self.p.mesh)
 
     def _make_engine(self, first_len: int):
         from .batching import DecodeEngine
@@ -121,7 +124,7 @@ class ChatSession:
         self._engine = DecodeEngine(
             self.p.cfg, self.p.params, num_slots=1, capacity=cap, attn_impl=self.p.attn_impl,
             kv_quant=self.kv_quant or self.p.kv_quant, act_quant=self.p.act_quant,
-            on_tokens=self.on_tokens, device=self.p.device,
+            on_tokens=self.on_tokens, mesh=self.p.mesh, device=self.p.device,
         )
 
     def _run(self) -> Any:

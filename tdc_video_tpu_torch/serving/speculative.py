@@ -155,6 +155,7 @@ def pld_decode_loop(
     window: int = 8,
     ngram: int = 3,
     attn_impl: str = "xla",
+    mesh=None,
 ) -> Tuple[torch.Tensor, int]:
     """Greedy decode with prompt-lookup speculation; the contract of
     generate.decode_loop: (tokens [B, max_new_tokens] int32 with pad after
@@ -192,9 +193,9 @@ def pld_decode_loop(
             break
         draft, _ = propose_ngram(hist, hist_len, ngram, K - 1)
         tokens = torch.cat([last[:, None], draft], dim=1)  # [B, K]
-        embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], tokens, cfg.dtype)
+        embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], tokens, cfg.dtype, mesh)
         logits, cache = lm_mod.verify_step(cfg.lm, params["lm"], embeds, cache,
-                                           attn_impl=attn_impl, dtype=cfg.dtype)
+                                           attn_impl=attn_impl, dtype=cfg.dtype, mesh=mesh)
         g = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, K]
         m, eos_emitted = accept_and_emit(g, draft, eos, max_new_tokens - ne, done)
         for j in range(K):  # masked per-sample scatters

@@ -10,7 +10,11 @@ Each chunk is copied to the device as it arrives and its encode is queued
 behind the previous one; the host waits for the device once, after the last
 chunk.  Chunks have one shape (`chunk_frames`; the last is padded and its
 pad frames masked).  JAX's two jits are plain calls of model.encode_frames
-and model.prepare_visual here.  Multi-device encode (`mesh=`) is not ported.
+and model.prepare_visual here.  With a mesh (parallel/mesh.py) each chunk's
+frames split over its `data` axis: every rank encodes its contiguous share
+and an all_gather over `data` gives every rank the chunk's features
+(model.encode_frames); chunk_frames must divide by the axis.  Every rank
+streams the same video.
 """
 
 from __future__ import annotations
@@ -119,16 +123,17 @@ class StreamingEncoder:
     def __init__(self, cfg: TDCConfig, params: Any, chunk_frames: int = 32,
                  max_frames: int = 1000, prefetch: int = 2, device_prep: bool = True,
                  mesh: Optional[Any] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("multi-device streaming encode (mesh=) is not ported "
-                                      "(ROADMAP.md queue 1 item 5)")
+        if mesh is not None and chunk_frames % mesh.size("data"):
+            raise ValueError(f"chunk_frames {chunk_frames} does not divide by the mesh's data "
+                             f"axis ({mesh.size('data')})")
         self.cfg = cfg
         self.params = params
         self.chunk_frames = chunk_frames
         self.max_frames = max_frames
         self.prefetch = prefetch
         self.device_prep = device_prep
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(x)
@@ -145,7 +150,7 @@ class StreamingEncoder:
         else:
             sig, dino = self._to_device(sig), self._to_device(dino)
         return encode_frames(cfg, self.params, sig.to(cfg.dtype), dino.to(cfg.dtype),
-                             attn_impl="flash")
+                             attn_impl="flash", mesh=self.mesh)
 
     def encode_stream(self, video_path: str, fps: Optional[float] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, np.ndarray, StreamStats]:

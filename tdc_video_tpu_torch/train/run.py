@@ -55,7 +55,7 @@ def main(argv=None, tokenizer=None):
     args = parse_args(argv)
     if args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError("multi-process training is not ported: one device "
-                                  "(ROADMAP.md queue 1 item 5)")
+                                  "(ROADMAP.md queue 1 item 6, slice 13)")
 
     from ..builder import load_pretrained_model
     from ..convert.to_hf import save_checkpoint_dir

@@ -26,8 +26,9 @@ Divergences, each deliberate:
   another rounding order, and needs no second gradient-sized buffer;
 * checkpoints are the port's own layout (`save`), not Orbax directories,
   which the port does not read;
-* the device mesh and FSDP are not ported: `mesh` raises
-  NotImplementedError (one device);
+* training over a device mesh (DP, FSDP, TP) is not ported: `mesh` raises
+  NotImplementedError (one device; serving and evaluation run over a mesh,
+  parallel/);
 * the trainer sets requires_grad on the caller's parameter tensors in place,
   and updates them in place; `restore_if_available` copies into them.
 """
@@ -238,8 +239,8 @@ class Trainer:
         default tcfg.seed; `lora`: a given adapter tree ({key: {a, b}}, e.g.
         a JAX tree through convert/from_numpy) instead of a fresh one."""
         if mesh is not None:
-            raise NotImplementedError("device meshes and FSDP are not ported: one device "
-                                      "(ROADMAP.md queue 1 item 5)")
+            raise NotImplementedError("training over a device mesh (DP, FSDP, TP) is not ported: "
+                                      "one device (ROADMAP.md queue 1 item 6, slice 13)")
         if not tcfg.lora_enable and (lora is not None or lora_key is not None):
             raise ValueError("a LoRA tree or key was given without lora_enable")
         self.cfg = cfg

@@ -25,7 +25,7 @@ from tdc_video_tpu_torch import config as tc
 from tdc_video_tpu_torch.models import lm as tlm
 from tdc_video_tpu_torch.serving import batching as tb
 from tdc_video_tpu_torch.serving.generate import generate_text_only
-from torch_parity import t, to_torch
+from torch_parity import StandInMesh, t, to_torch
 
 
 @pytest.fixture(scope="module")
@@ -155,8 +155,10 @@ def test_engine_token_identical_to_jax(setup, mode):
 
 
 def test_mesh_raises(setup):
-    with pytest.raises(NotImplementedError):
-        tb.DecodeEngine(tc.tdc_tiny(), setup[1], mesh=object(), device="cpu")
+    """A mesh whose model axis does not divide the 2 KV heads raises before
+    any cache is made (the TP engine itself: tests/test_torch_parallel_tp.py)."""
+    with pytest.raises(ValueError, match="KV heads"):
+        tb.DecodeEngine(tc.tdc_tiny(), setup[1], mesh=StandInMesh(n_model=4), device="cpu")
 
 
 # -- behaviour, on the port ---------------------------------------------------

@@ -352,13 +352,27 @@ def test_bounded_groups_answer_from_their_own_frames(env, monkeypatch):
 
 
 def test_shard_and_gather_are_one_process(monkeypatch):
+    """One process: every sample, its own records.  Under a group of two
+    ranks (stubbed here: no group is made in the pytest process; the real
+    two-rank run is tests/test_torch_parallel_eval.py): the round-robin
+    share, and the gathered records in rank order through all_gather_object
+    of each rank's JSON."""
+    import json
+
     import torch.distributed as dist
 
     xs = [{"a": 1}, {"b": 2}, {"c": 3}]
-    assert trun.shard_samples(xs) is xs and trun.allgather_records(xs) is xs
+    assert trun.shard_samples(xs) == xs and trun.allgather_records(xs) is xs
     assert trun.process_rank() == 0
+    other = [{"z": [1, 2]}]
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    for fn in (trun.shard_samples, trun.allgather_records):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            fn(xs)
+    monkeypatch.setattr(dist, "get_rank", lambda *a: 1)
+
+    def all_gather_object(out, obj):
+        out[:] = [json.dumps(other), obj]
+
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+    assert trun.process_rank() == 1
+    assert trun.shard_samples(xs) == [{"b": 2}]
+    assert trun.allgather_records(xs) == other + xs

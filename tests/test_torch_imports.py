@@ -37,7 +37,7 @@ def test_port_and_smoke_script_import_no_jax():
                   "train.dataset", "train.runner_utils", "train.run", "serving.prng",
                   "serving.batching", "serving.session", "cli.serve", "eval.datasets",
                   "eval.harness", "serving.streaming", "cli.activation_diff", "cli.model_ops",
-                  "models.projector"):
+                  "models.projector", "parallel.mesh", "parallel.sharding"):
             assert "tdc_video_tpu_torch." + m in names, m
         print(len(names))
         """

@@ -223,9 +223,13 @@ def test_serve_main_prints_jax_answers(clip_and_ckpt, mode, monkeypatch, capsys)
     assert ("\n[q" in printed) == ("--stream" in mode)  # the streamed tokens, as JAX prints them
 
 
-def test_serve_mesh_raises(tmp_path):
+def test_serve_mesh_raises(tmp_path, monkeypatch):
+    """--mesh outside torchrun (no rank variables, no process group) raises
+    before anything loads; the mesh run itself: tests/test_torch_parallel_tp.py."""
     from tdc_video_tpu_torch.cli import serve as tserve
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         tserve.main(["--model_path", str(tmp_path), "--video", "x.mp4", "--question", "q",
                      "--mesh", "1x2", "--device", "cpu"])

@@ -30,7 +30,7 @@ from tdc_video_tpu_torch.data.images import device_preprocess, process_frames
 from tdc_video_tpu_torch.media import build as media_build
 from tdc_video_tpu_torch.media import io as tio
 from tdc_video_tpu_torch.serving import streaming as tstream
-from torch_parity import ATOL, RTOL, close, to_torch
+from torch_parity import ATOL, RTOL, StandInMesh, close, to_torch
 
 HAS_FFMPEG, FFMPEG_MSG = media_build.ffmpeg_libraries()
 needs_ffmpeg = pytest.mark.skipif(not HAS_FFMPEG,
@@ -125,9 +125,16 @@ def test_stream_equals_jax_and_monolithic(models, source, device_prep):
 
 
 def test_mesh_raises(models):
+    """A chunk the mesh's data axis does not divide raises (JAX's
+    test_chunk_not_divisible_raises; the sharded encode itself:
+    tests/test_torch_parallel_tp.py)."""
     _, _, tcfg, tp = models
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tstream.StreamingEncoder(tcfg, tp, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        tstream.StreamingEncoder(tcfg, tp, chunk_frames=CHUNK, mesh=StandInMesh(n_data=3),
+                                 device="cpu")
+    enc = tstream.StreamingEncoder(tcfg, tp, chunk_frames=CHUNK, mesh=StandInMesh(n_data=2),
+                                   device="cpu")
+    assert enc.device == torch.device("cpu")
 
 
 def test_producer_error_reaches_the_caller(models, monkeypatch):

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from tdc_video_tpu_torch.convert.from_numpy import params_from_numpy
+from torch_stub_tokenizer import StubTokenizer  # noqa: F401  (the tests import it from here)
 
 # xdist runs several workers on a few cores: keep each worker's torch to a
 # couple of threads
@@ -24,6 +25,21 @@ def to_torch(tree):
     return params_from_numpy(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
 
 
+def to_jax(tree):
+    """The port's tree -> JAX's (its container types kept, None leaves
+    too): the inverse of to_torch, for weights made fast by the port's
+    seeded init (JAX's eager init of tdc_tiny takes seconds)."""
+    import jax.numpy as jnp
+
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_jax(v) for v in tree)
+    return jnp.asarray(tree.detach().cpu().numpy())
+
+
 def t(x, dtype=None):
     """numpy / JAX array -> CPU tensor."""
     out = torch.from_numpy(np.array(x))
@@ -35,25 +51,24 @@ def close(port, ref, atol=ATOL, rtol=RTOL):
     np.testing.assert_allclose(a, np.asarray(ref, dtype=np.float32), atol=atol, rtol=rtol)
 
 
-class StubTokenizer:
-    """Offline tokenizer with encode/decode: one id per character, Llama-3
-    and ChatML specials mapped to fixed ids inside a 512-token vocabulary."""
+class StandInMesh:
+    """A mesh's shape, coordinates and device without a process group, for
+    the checks that come before any collective (divisibility raises, spec
+    slicing): a collective over an axis of more than one rank raises."""
 
-    SPECIALS = {"<|begin_of_text|>": 300, "<|start_header_id|>": 301, "<|end_header_id|>": 302,
-                "<|eot_id|>": 303, "<|im_start|>": 304, "<|im_end|>": 305}
+    def __init__(self, n_data=1, n_model=1, data=0, model=0):
+        self.shape = {"data": n_data, "model": n_model}
+        self.coords = {"data": data, "model": model}
+        self.device = torch.device("cpu")
 
-    def encode(self, text):
-        ids, i = [], 0
-        while i < len(text):
-            for s, sid in self.SPECIALS.items():
-                if text.startswith(s, i):
-                    ids.append(sid)
-                    i += len(s)
-                    break
-            else:
-                ids.append(2 + ord(text[i]) % 250)
-                i += 1
-        return ids
+    def size(self, axis=None):
+        return self.shape["data"] * self.shape["model"] if axis is None else self.shape[axis]
 
-    def decode(self, ids, skip_special_tokens=True):
-        return " ".join(str(int(i)) for i in ids)
+    def all_reduce(self, x, axis, op="sum"):
+        if self.size(axis) > 1:
+            raise RuntimeError("a stand-in mesh has no process group")
+        return x
+
+    def all_gather(self, x, axis, dim=0):
+        return self.all_reduce(x, axis)
+
