@@ -222,6 +222,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
    gets rank 0's launches in (a)-(d) (`launches_tp`, `launches_dp`,
    `launches_eval_dp`, `launches_nccl`); K1 at (a)'s shape and K2, K3 at 8
    frames get entries of their own.
+15. training over a mesh, run right after phase 11 (phase 9's model freed):
+   two ranks, child processes of the smoke (`chip_smoke.py --train-rank`,
+   RANK and WORLD_SIZE set, killed at a wall limit) on cuda:0 in a gloo
+   group, each leg's one-process reference run first in the smoke's own
+   process on the same seeded weights and global batch and freed before the
+   ranks start; the models at full width with the LM cut to 4 layers (two
+   ranks share the card, and gloo moves every collective through the
+   host), the towers and BEATs at full depth; one JSON line a leg: (c)
+   first, train.run.main with --coordinator/--num_processes/--process_id
+   and --backend gloo on phase 11 (e)'s checkpoint and data.json (auto_mesh:
+   1x2 for Qwen2-7B's 4 KV heads): rank 0's metrics.jsonl losses within
+   LOSS_ATOL of (e)'s one-process run, one line a step (rank 1 writes
+   none), and the final/ rank 0 wrote loading with its config and answering
+   with K1-K3 launched; (a) stage3_audio_lora on TDC-Qwen2-7B(audio) over a
+   1x2 mesh (14 query and 2 KV heads a rank), phase 11's sample, one
+   optimizer step of 2 micro-steps: each loss within LOSS_ATOL of one
+   process's and bitwise equal on both ranks, the gradient the step
+   applies (the first update's learning rate is 0 in the warmup, so the
+   adapters stay as they were, which is checked bitwise) with cosine at
+   least GRAD_COS_MIN against one process's over all adapters and over each
+   layer's q/k/v/o ones, the LM base bitwise unchanged, launches a rank a
+   micro-step K1 8, K5 4, K6 4, K2 40, K3 27 exactly, peak memory a rank;
+   K1, K5 and K6 at a rank's shape ([1, 8192, 14, 128] over 2 KV heads)
+   held row by row and timed beside their bounds and SDPA, in the smoke's
+   own process before the ranks start (entries of their own); (b)
+   stage2_video_sft on TDC-Llama3.2-3B over a 2x1 mesh (FSDP: 2 layers a
+   rank; one sample a rank of a global batch of 2, phase 6's and the same
+   with its frames reversed): the losses and the gathered LM gradient held
+   as in (a), the launches as in (a), the layer broadcasts and their
+   gradient sums a micro-step printed; (d) a one-rank NCCL group in the
+   smoke's own process: one micro-step of Trainer(mesh=1x1) on phase 11
+   (e)'s cut model, its loss and every gradient bitwise those of
+   Trainer(mesh=None).  Every kernel's entry gets rank 0's launches in
+   (a)-(d) (`launches_train_tp`, `launches_train_fsdp`, `launches_train_cli`
+   over the CLI's 2 micro-steps, `launches_train_nccl`).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -1843,24 +1878,30 @@ def _rank_main() -> int:
     return 0
 
 
-def _launch_ranks(tmp):
-    """Start MESH_RANKS ranks of _rank_main, each with its log under tmp;
-    wait for all of them within MESH_WALL_S.  A rank that fails, or the
-    wall limit, ends the others (killed) and the phase."""
+def _free_port() -> int:
     import socket
 
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+        return sk.getsockname()[1]
+
+
+def _launch_ranks(tmp, flag: str = "--mesh-rank", wall_s: float = MESH_WALL_S,
+                  phase: int = 14):
+    """Start MESH_RANKS ranks (`chip_smoke.py <flag> <tmp>` with torchrun's
+    variables), each with its log under tmp; wait for all of them within
+    wall_s.  A rank that fails, or the wall limit, ends the others (killed)
+    and the phase.  Returns each rank's rank<r>.json."""
+    port = _free_port()
     procs, logs = [], []
     for r in range(MESH_RANKS):
         env = dict(os.environ, RANK=str(r), LOCAL_RANK="0", WORLD_SIZE=str(MESH_RANKS),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         logs.append(open(os.path.join(tmp, f"log{r}.txt"), "w"))
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
-                                       tmp], stdout=logs[-1], stderr=subprocess.STDOUT, env=env,
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, tmp],
+                                      stdout=logs[-1], stderr=subprocess.STDOUT, env=env,
                                       cwd=os.path.dirname(os.path.abspath(__file__))))
-    deadline = time.monotonic() + MESH_WALL_S
+    deadline = time.monotonic() + wall_s
     rcs = [None] * MESH_RANKS
     try:
         while any(rc is None for rc in rcs):
@@ -1879,9 +1920,9 @@ def _launch_ranks(tmp):
     for r in range(MESH_RANKS):
         with open(os.path.join(tmp, f"log{r}.txt")) as fh:
             for line in fh.read().splitlines()[-60:]:
-                log(f"[14] rank {r}| {line}")
+                log(f"[{phase}] rank {r}| {line}")
     if rcs != [0] * MESH_RANKS:
-        raise AssertionError(f"[14] ranks exited {rcs} (wall limit {MESH_WALL_S:.0f} s)")
+        raise AssertionError(f"[{phase}] ranks exited {rcs} (wall limit {wall_s:.0f} s)")
     results = []
     for r in range(MESH_RANKS):
         with open(os.path.join(tmp, f"rank{r}.json")) as fh:
@@ -1893,19 +1934,15 @@ def _nccl_leg(cfg, params, frames, ids):
     """(d): a one-rank NCCL group in this process: an all_reduce, then
     TDCPredictor(mesh=1x1) answering phase 3's question; the group is gone
     after.  Returns (ids, launches, wall s)."""
-    import socket
-
     import torch.distributed as dist
 
     from tdc_video_tpu_torch.eval.runner import TDCPredictor
     from tdc_video_tpu_torch.ops import flash_attention as fa
     from tdc_video_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    dev = init_distributed(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0,
-                           backend="nccl", device="cuda:0", timeout_s=MESH_TIMEOUT_S)
+    dev = init_distributed(coordinator=f"127.0.0.1:{_free_port()}", num_processes=1,
+                           process_id=0, backend="nccl", device="cuda:0",
+                           timeout_s=MESH_TIMEOUT_S)
     try:
         x = torch.ones(8, device=dev)
         dist.all_reduce(x)
@@ -3071,10 +3108,12 @@ def _check_export_on_host(trainer, merged):
     return n, same
 
 
-def phase_stage3(av, has_ffmpeg: bool):
+def phase_stage3(av, has_ffmpeg: bool, keep: str):
     """Phase 11: stage 3 on phase 9's TDC-Qwen2-7B(audio) (module docstring).
     Takes phase 9's model out of `av`.  Returns ({"lora", "qlora"}: launch
-    counts of one micro-step, the K1/K5/K6 entries at the stage-3 shape)."""
+    counts of one micro-step, the K1/K5/K6 entries at the stage-3 shape,
+    (e)'s CLI run for phase 15: {"cfg", "argv", "losses"}, its checkpoint
+    and data under `keep`)."""
     from tdc_video_tpu_torch.train.stages import stage3_audio_lora
     from tdc_video_tpu_torch.train.trainer import Trainer
 
@@ -3158,17 +3197,19 @@ def phase_stage3(av, has_ffmpeg: bool):
         torch.cuda.empty_cache()
 
         # (e) checkpoint, export and the CLI on the cut model
-        _stage3_checkpoint_and_cli(cfg, tmp, has_ffmpeg)
+        cli = _stage3_checkpoint_and_cli(cfg, tmp, has_ffmpeg, keep)
     log(f"[11] phase 11 in {time.perf_counter() - t_phase:.1f} s; {card()}")
-    return {"lora": counts_a, "qlora": counts_d}, rows
+    return {"lora": counts_a, "qlora": counts_d}, rows, cli
 
 
-def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg):
+def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg, keep):
     """(e): on Qwen2-7B(audio) at full width, depths cut to phase 8's: a
     QLoRA Trainer's save restored bitwise by a new Trainer; its export
     written with save_checkpoint_dir and loaded, answering token-identically
     to the merged params in memory; then train.run.main on a synthetic
-    data.json, ending with a final/ that loads."""
+    data.json, ending with a final/ that loads.  The export and the data are
+    written under `keep`; returns the CLI run ({"cfg", "argv" less
+    --output_dir and --device, "losses"}) for phase 15."""
     from tdc_video_tpu_torch.builder import load_pretrained_model
     from tdc_video_tpu_torch.convert.to_hf import save_checkpoint_dir
     from tdc_video_tpu_torch.eval.runner import TDCPredictor
@@ -3216,7 +3257,7 @@ def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg):
     t0 = time.perf_counter()
     merged = _tree_to(tr.export_merged(), lambda x: x.float() if x.is_floating_point() else x)
     del tr
-    path = os.path.join(tmp, "merged")
+    path = os.path.join(keep, "merged")
     save_checkpoint_dir(merged, cfg, path)
     _, loaded, _, _ = load_pretrained_model(path, load_tokenizer=False, dtype=torch.bfloat16,
                                             device=dev)
@@ -3238,7 +3279,7 @@ def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg):
 
     # the training entry point on a synthetic data.json
     t0 = time.perf_counter()
-    data = os.path.join(tmp, "data")
+    data = os.path.join(keep, "data")
     os.makedirs(data)
     n, h, w = S3_CLI_FRAMES
     rng = np.random.default_rng(SEED + 12)
@@ -3254,9 +3295,11 @@ def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg):
         json.dump(rows, fh)
     out = os.path.join(tmp, "cli")
     argv = ["--stage", "3", "--model_path", path, "--data_path", os.path.join(data, "data.json"),
-            "--image_folder", data, "--output_dir", out, "--max_steps", "2", "--report_to", "jsonl",
-            "--bert_tokenizer", "", "--max_train_frames", str(n), "--device", DEVICE]
-    trainer = train_run.main(argv, tokenizer=QwenByteTokenizer())
+            "--image_folder", data, "--max_steps", "2", "--report_to", "jsonl",
+            "--bert_tokenizer", "", "--max_train_frames", str(n)]
+    with _IOTimer() as io:
+        trainer = train_run.main(argv + ["--output_dir", out, "--device", DEVICE],
+                                 tokenizer=QwenByteTokenizer())
     losses = [json.loads(x)["loss"] for x in open(os.path.join(out, "metrics.jsonl"))]
     del trainer
     gc.collect()
@@ -3267,7 +3310,8 @@ def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg):
         f"{n} ({'with' if has_ffmpeg else 'without: no FFmpeg libraries for'} a wav per row): "
         f"losses {losses}, checkpoints {sorted(os.listdir(os.path.join(out, 'checkpoints')))}, "
         f"final/ loads ({n_final} params, config {'equal' if final.cfg == cfg else 'differs'}) "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {time.perf_counter() - t0:.1f} s; in the entry point's checkpoint work (s): "
+        f"{json.dumps(io.seconds)}")
     if len(losses) != 2 or not all(math.isfinite(x) for x in losses) or final.cfg != cfg:
         raise AssertionError("[11] (e) the training entry point did not end as it should")
     del final
@@ -3279,6 +3323,7 @@ def _stage3_checkpoint_and_cli(full, tmp, has_ffmpeg):
     log(f"[11] (e) torch.utils.tensorboard {tb} on this machine")
     gc.collect()
     torch.cuda.empty_cache()
+    return {"cfg": cfg, "argv": argv, "losses": losses}
 
 
 def _write_wav(path: str, wav: np.ndarray) -> None:
@@ -3320,6 +3365,463 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15
+# ---------------------------------------------------------------------------
+
+# the LM depth of phase 15's models: two ranks of one card each hold a
+# model at full width, and gloo moves every collective through the host
+TRAIN_MESH_LAYERS = 4
+# launches a rank a micro-step at that depth: K1 forward and remat
+# recompute, K5/K6 backward, the towers at full depth (phase 6's K2, K3)
+MESH_TRAIN_LAUNCHES = {"flash_kernel": 2 * TRAIN_MESH_LAYERS, "full_attention_nhd": 40,
+                       "full_attention_nhd_seqq": 27, "full_attention": 0,
+                       "flash_dq_kernel": TRAIN_MESH_LAYERS, "flash_dkv_kernel": TRAIN_MESH_LAYERS}
+TRAIN_WALL_S = 420.0
+
+
+def _rank_device() -> str:
+    """Both ranks' device (the card's first)."""
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def _cut_lm(cfg, layers: int = TRAIN_MESH_LAYERS):
+    return dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=layers))
+
+
+def _mesh_stage3(dev):
+    """Leg (a)'s model and preset: TDC-Qwen2-7B(audio) at full width, its LM
+    cut to TRAIN_MESH_LAYERS (towers and BEATs at full depth), phase 11's
+    trainer tree over bf16 weights from the seed; stage3_audio_lora with
+    one optimizer step of 2 micro-steps."""
+    from tdc_video_tpu_torch.config import tdc_qwen2_7b
+    from tdc_video_tpu_torch.model import init_tdc
+    from tdc_video_tpu_torch.train.stages import stage3_audio_lora
+
+    cfg = _cut_lm(tdc_qwen2_7b(audio=True))
+    params = stage3_params(init_tdc(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                    torch.bfloat16))
+    tcfg = dataclasses.replace(stage3_audio_lora(), max_steps=2, report_to="none")
+    return cfg, params, tcfg
+
+
+def _mesh_stage2(dev):
+    """Leg (b)'s model and preset: TDC-Llama3.2-3B at full width, its LM cut
+    to TRAIN_MESH_LAYERS, f32 weights from the seed (phase 6's); the
+    stage2_video_sft preset (accumulation 2)."""
+    from tdc_video_tpu_torch.config import tdc_llama32_3b
+    from tdc_video_tpu_torch.model import init_tdc
+    from tdc_video_tpu_torch.train.stages import stage2_video_sft
+
+    cfg = _cut_lm(tdc_llama32_3b())
+    params = init_tdc(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, torch.float32)
+    tcfg = dataclasses.replace(stage2_video_sft(), max_steps=2, report_to="none")
+    return cfg, params, tcfg
+
+
+def stage2_global_batch(cfg):
+    """Two samples of phase 6's shape: phase 6's, and the same with its
+    frames in reverse order (other segments, the same text)."""
+    one = train_batch(cfg, TRAIN_FRAMES)
+    two = dict(one, siglip_px=np.ascontiguousarray(one["siglip_px"][:, ::-1]),
+               dino_px=np.ascontiguousarray(one["dino_px"][:, ::-1]))
+    return {k: np.concatenate([one[k], two[k]]) for k in one}
+
+
+def _step_grads(trainer, prefix: str):
+    """Wraps trainer.tx.step: the gradient each optimizer step applies (after
+    the mesh's sums, before the clip), gathered whole, as bf16 on the host
+    on rank 0, for the trainable leaves whose checkpoint name starts with
+    `prefix`; returns the dict it fills."""
+    snap = {}
+    real = trainer.tx.step
+
+    def step():
+        for name, t, spec in trainer._named():
+            if name.startswith(prefix) and t.grad is not None:
+                g = trainer._whole(t.grad, spec)
+                if trainer.rank == 0:
+                    snap[name] = g.to("cpu", torch.bfloat16)
+        real()
+
+    trainer.tx.step = step
+    return snap
+
+
+def _train_leg(trainer, batch, tag, expected, prefix):
+    """One optimizer step (2 micro-steps) through train_step, the launch
+    counters and the mesh collectives counted per micro-step; returns
+    {losses, walls, launches, collectives, peak_gib, grads}."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.parallel import autograd
+
+    grads = _step_grads(trainer, prefix)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "walls": [], "launches": [], "collectives": []}
+    for _ in range(trainer.tcfg.gradient_accumulation_steps):
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        autograd.reset_counts()
+        t0 = time.perf_counter()
+        out["losses"].append(float(trainer.train_step(batch)))
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["launches"].append(dict(fa.launches))
+        out["collectives"].append(dict(autograd.counts))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["grads"] = grads
+    log(f"[15] {tag}: losses {out['losses']}, walls {out['walls']}, "
+        f"peak {out['peak_gib']:.2f} GiB, "
+        f"launches {json.dumps(out['launches'][-1])}, collectives {json.dumps(out['collectives'])}")
+    if trainer.tx.count != 1 or not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"[15] {tag}: {trainer.tx.count} updates, losses {out['losses']}")
+    if any(c != expected for c in out["launches"]):
+        raise AssertionError(f"[15] {tag}: launches {out['launches']}, expected {expected}")
+    return out
+
+
+def _lm_unchanged(trainer, snap) -> bool:
+    return all(torch.equal(t, snap[n]) for n, t in _named_leaves(trainer.params["lm"]).items())
+
+
+class _IOTimer:
+    """Seconds spent in the training entry point's checkpoint work, by
+    function (load_pretrained_model, Trainer.save, Trainer.export_merged,
+    save_checkpoint_dir), while the `with` block runs."""
+
+    def __enter__(self):
+        from tdc_video_tpu_torch import builder
+        from tdc_video_tpu_torch.convert import to_hf
+        from tdc_video_tpu_torch.train.trainer import Trainer
+
+        self.seconds = {}
+        self._saved = [(builder, "load_pretrained_model"), (Trainer, "save"),
+                       (Trainer, "export_merged"), (to_hf, "save_checkpoint_dir")]
+        self._real = [getattr(o, n) for o, n in self._saved]
+        for (owner, name), real in zip(self._saved, self._real):
+            setattr(owner, name, self._timed(name, real))
+        return self
+
+    def _timed(self, name, real):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    def __exit__(self, *exc):
+        for (owner, name), real in zip(self._saved, self._real):
+            setattr(owner, name, real)
+
+
+def _train_rank_main() -> int:
+    """One rank of phase 15, run as `chip_smoke.py --train-rank <tmp>` with
+    torchrun's RANK and WORLD_SIZE: (c) train.run.main with the coordinator
+    flags (it joins the gloo group on cuda:0), then (a) and (b) over that
+    group.  Writes rank<r>.json (and rank 0 the gathered gradients) into
+    <tmp>."""
+    import torch.distributed as dist
+
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.parallel.mesh import make_mesh
+    from tdc_video_tpu_torch.train import run as train_run
+    from tdc_video_tpu_torch.train.trainer import Trainer
+
+    tmp = sys.argv[sys.argv.index("--train-rank") + 1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(tmp, "spec.json")) as fh:
+        spec = json.load(fh)
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank}
+
+    # (c) the training entry point over the two ranks
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    with _IOTimer() as io:
+        tr = train_run.main(spec["cli_argv"] + [
+            "--coordinator", spec["coordinator"], "--num_processes", os.environ["WORLD_SIZE"],
+            "--process_id", str(rank), "--backend", "gloo", "--device", _rank_device()],
+            tokenizer=QwenByteTokenizer())
+    torch.cuda.synchronize()
+    out.update(cli_s=time.perf_counter() - t0, cli_io_s=io.seconds, launches_cli=dict(fa.launches),
+               cli_mesh=dict(tr.mesh.shape), cli_step=tr.step, cli_n_data=tr.n_data)
+    dev = tr.device
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) stage-3 LoRA, tensor-parallel 1x2
+    t0 = time.perf_counter()
+    cfg, params, tcfg = _mesh_stage3(dev)
+    mesh = make_mesh(1, 2, device=dev, num_kv_heads=cfg.lm.num_kv_heads)
+    trainer = Trainer(cfg, tcfg, params, total_steps=tcfg.max_steps, mesh=mesh)
+    del params
+    lm_snap = {n: t.detach().clone() for n, t in _named_leaves(trainer.params["lm"]).items()}
+    lora0 = {n: t.detach().clone() for n, t, _ in trainer._named() if n.startswith("lora/")}
+    leg = _train_leg(trainer, stage3_batch(cfg, S3_FRAMES, S3_SECONDS), "(a) TP 1x2",
+                     MESH_TRAIN_LAUNCHES, "lora/")
+    out["a"] = {k: v for k, v in leg.items() if k != "grads"}
+    out["a"]["lm_unchanged"] = _lm_unchanged(trainer, lm_snap)
+    # the warmup makes the first update's learning rate 0: the adapters stay
+    out["a"]["lora_unchanged"] = all(torch.equal(t, lora0[n]) for n, t, _ in trainer._named()
+                                     if n.startswith("lora/"))
+    out["a"]["q_cols"] = trainer.params["lm"]["layers"]["q_proj"]["w"].shape[-1]
+    if rank == 0:
+        torch.save(leg["grads"], os.path.join(tmp, "a_grads.pt"))
+    out["a"]["leg_s"] = time.perf_counter() - t0
+    del trainer, lm_snap, lora0, leg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) stage 2, FSDP over the layers and data-parallel samples, 2x1
+    t0 = time.perf_counter()
+    cfg, params, tcfg = _mesh_stage2(dev)
+    mesh = make_mesh(2, 1, device=dev)
+    trainer = Trainer(cfg, tcfg, params, total_steps=tcfg.max_steps, mesh=mesh)
+    del params
+    leg = _train_leg(trainer, stage2_global_batch(cfg), "(b) FSDP+DP 2x1", MESH_TRAIN_LAUNCHES,
+                     "params/lm/")
+    out["b"] = {k: v for k, v in leg.items() if k != "grads"}
+    out["b"]["local_layers"] = trainer.params["lm"]["layers"]["q_proj"]["w"].shape[0]
+    if rank == 0:
+        torch.save(leg["grads"], os.path.join(tmp, "b_grads.pt"))
+    out["b"]["leg_s"] = time.perf_counter() - t0
+    del trainer, leg
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _reference_leg(make, batch_fn, tag, prefix):
+    """The one-process run of a leg on the same seeded weights and global
+    batch, in this process; freed before the ranks start."""
+    from tdc_video_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device(DEVICE)
+    cfg, params, tcfg = make(dev)
+    trainer = Trainer(cfg, tcfg, params, total_steps=tcfg.max_steps, device=dev)
+    del params
+    leg = _train_leg(trainer, batch_fn(cfg), f"({tag}) one process", MESH_TRAIN_LAUNCHES, prefix)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return leg
+
+
+def _held_grads(tag, got, want):
+    """The cosine of all the gathered gradients and of each layer's
+    q/k/v/o ones (A and B together under LoRA) against one process's."""
+    dev = torch.device(DEVICE)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"[15] {tag}: gradient leaves differ")
+    total = _cosine(torch.cat([got[n].to(dev).flatten() for n in want]),
+                    torch.cat([want[n].to(dev).flatten() for n in want]))
+    per = {}
+    for n in want:
+        m = re.search(r"layers/([qkvo]_proj)/", n)
+        if m:
+            for i in range(want[n].shape[0]):
+                per.setdefault((m.group(1), i), []).append(n)
+    per_cos = {f"{p}[{i}]": _cosine(torch.cat([got[n][i].to(dev).flatten() for n in names]),
+                                    torch.cat([want[n][i].to(dev).flatten() for n in names]))
+               for (p, i), names in per.items()}
+    worst = min(per_cos, key=per_cos.get)
+    return total, worst, per_cos[worst]
+
+
+def tp_kernel_rows(cfg, n_model: int):
+    """K1, K5 and K6 at one rank's heads of the stage-3 LM under TP
+    ([1, 8192, 28/n, 128] over [1, 8192, 4/n, 128]), held row by row to
+    their plain versions and timed beside SDPA or its backward."""
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    rnd = _rnd_fn(SEED + 15)
+    H, Hkv, D = cfg.lm.num_heads // n_model, cfg.lm.num_kv_heads // n_model, cfg.lm.head_dim
+    label = f"stage-3 LM TP 1x{n_model}, one rank's heads, T={TRAIN_T} causal GQA {H}/{Hkv}"
+    rows = [_fwd_row(fa, rnd, "flash_kernel", "tdc_video_tpu/ops/flash_attention.py:38",
+                     (1, TRAIN_T, TRAIN_T, H, Hkv, D), True)]
+    rows[0]["shape"] = f"{label}: {rows[0]['shape']}"
+    rows += _bwd_rows(rnd, label, (1, TRAIN_T, H, Hkv, D), True, False, torch.bfloat16, True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _nccl_train_leg(cli):
+    """(d): a one-rank NCCL group in this process; phase 11 (e)'s cut model
+    (its stage-3 QLoRA-free preset at S3_CUT_T rows): one micro-step through
+    Trainer(mesh=None) and one through Trainer(mesh=1x1), on the same seeded
+    weights and batch.  Returns (equal, details, launches of the 1x1 run)."""
+    from tdc_video_tpu_torch.model import init_tdc
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from tdc_video_tpu_torch.train.stages import stage3_audio_lora
+    from tdc_video_tpu_torch.train.trainer import Trainer
+
+    cfg = cli["cfg"]
+    tcfg = dataclasses.replace(stage3_audio_lora(), max_steps=2, report_to="none",
+                               model_max_length=S3_CUT_T)
+    batch = stage3_batch(cfg, S3_CUT_FRAMES, S3_CUT_FRAMES)
+    dev = init_distributed(coordinator=f"127.0.0.1:{_free_port()}", num_processes=1,
+                           process_id=0, backend="nccl", device=_rank_device(),
+                           timeout_s=MESH_TIMEOUT_S)
+    runs = []
+    try:
+        for mesh in (None, make_mesh(1, 1, device=dev, num_kv_heads=cfg.lm.num_kv_heads)):
+            params = stage3_params(init_tdc(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                            dev, torch.bfloat16))
+            tr = Trainer(cfg, tcfg, params, total_steps=2, mesh=mesh, device=dev)
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            loss = tr.train_step(batch)
+            torch.cuda.synchronize()
+            runs.append({"loss": float(loss), "mesh": tr.mesh, "launches": dict(fa.launches),
+                         "grads": {n: t.grad.detach().clone() for n, t, _ in tr._named()
+                                   if t.grad is not None}})
+            del tr, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    a, b = runs
+    differ = sorted(n for n in a["grads"] if not torch.equal(a["grads"][n], b["grads"][n]))
+    equal = a["loss"] == b["loss"] and not differ and sorted(a["grads"]) == sorted(b["grads"])
+    return equal, {"loss": [a["loss"], b["loss"]], "grad_leaves": len(a["grads"]),
+                   "grads_differ": differ[:8], "mesh_1x1_runs_one_process_code":
+                   b["mesh"] is None}, b["launches"]
+
+
+def phase_mesh_train(cli):
+    """Phase 15: training over a mesh on two ranks of one card (module
+    docstring).  `cli`: phase 11 (e)'s cut checkpoint, data and CLI losses.
+    Returns ({"train_tp", "train_fsdp", "train_cli", "train_nccl"}: rank 0's
+    launch counts, the K1/K5/K6 rows at (a)'s per-rank shape)."""
+    from tdc_video_tpu_torch.builder import load_pretrained_model
+    from tdc_video_tpu_torch.eval.runner import TDCPredictor
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    log(f"[15] {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at its start")
+    # the one-process references, each freed before the ranks start
+    ref_a = _reference_leg(_mesh_stage3, lambda c: stage3_batch(c, S3_FRAMES, S3_SECONDS), "a",
+                           "lora/")
+    ref_b = _reference_leg(_mesh_stage2, stage2_global_batch, "b", "params/lm/")
+    from tdc_video_tpu_torch.config import tdc_qwen2_7b
+
+    rows = tp_kernel_rows(tdc_qwen2_7b(audio=True), MESH_RANKS)
+    t_refs = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory(prefix="tdc_mesh_train_") as tmp:
+        out_dir = os.path.join(tmp, "cli")
+        with open(os.path.join(tmp, "spec.json"), "w") as fh:
+            json.dump({"coordinator": f"127.0.0.1:{_free_port()}",
+                       "cli_argv": cli["argv"] + ["--output_dir", out_dir]}, fh)
+        t0 = time.perf_counter()
+        res = _launch_ranks(tmp, "--train-rank", TRAIN_WALL_S, 15)
+        ranks_s = time.perf_counter() - t0
+        grads_a = torch.load(os.path.join(tmp, "a_grads.pt"))
+        grads_b = torch.load(os.path.join(tmp, "b_grads.pt"))
+        cli_metrics = [json.loads(x) for x in open(os.path.join(out_dir, "metrics.jsonl"))]
+        # final/ written by rank 0: loads, and answers with K1-K3 launched
+        _, final, _, _ = load_pretrained_model(os.path.join(out_dir, "final"),
+                                               load_tokenizer=False, device=DEVICE)
+        pred = TDCPredictor(final.cfg, final.params, QwenByteTokenizer(), device_preprocess=True,
+                            device=DEVICE)
+        frames = synth_frames(SEED, S3_CUT_FRAMES)
+        pred.answer(frames, QUESTION, max_new_tokens=4)  # the first call's one-time costs
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        pred.answer(frames, QUESTION, max_new_tokens=MAX_NEW_TOKENS)
+        torch.cuda.synchronize()
+        final_launches = dict(fa.launches)
+        final_cfg_equal = final.cfg == cli["cfg"]
+        del pred, final
+        gc.collect()
+        torch.cuda.empty_cache()
+    r0 = res[0]
+    failures = []
+
+    # (a) stage-3 LoRA, TP 1x2
+    cos_a = _held_grads("(a)", grads_a, ref_a["grads"])
+    dl_a = max(abs(x - y) for x, y in zip(r0["a"]["losses"], ref_a["losses"]))
+    _leg(15, "a_stage3_lora_tp", mesh="1x2", backend="gloo", ranks_on="cuda:0",
+         lm_layers=TRAIN_MESH_LAYERS, heads_per_rank=[rows[0]["shape"]],
+         q_cols_per_rank=r0["a"]["q_cols"], losses=[r["a"]["losses"] for r in res],
+         losses_one_process=ref_a["losses"], loss_max_abs_diff=dl_a,
+         grad_cos_all_adapters=cos_a[0], grad_cos_worst_layer=cos_a[1:],
+         update_note="the first optimizer step's learning rate is 0 (warmup from 0): the held "
+                     "vector is the gradient that step applies, after the mesh's sums",
+         lm_unchanged=[r["a"]["lm_unchanged"] for r in res],
+         adapters_unchanged_at_lr0=[r["a"]["lora_unchanged"] for r in res],
+         walls=[r["a"]["walls"] for r in res], walls_one_process=ref_a["walls"],
+         peak_gib_per_rank=[r["a"]["peak_gib"] for r in res],
+         peak_gib_one_process=ref_a["peak_gib"], collectives=r0["a"]["collectives"],
+         launches=[r["a"]["launches"] for r in res], leg_s=[r["a"]["leg_s"] for r in res])
+    if (dl_a > LOSS_ATOL or min(cos_a[0], cos_a[2]) < GRAD_COS_MIN
+            or any(r["a"]["losses"] != r0["a"]["losses"] for r in res)
+            or not all(r["a"]["lm_unchanged"] and r["a"]["lora_unchanged"] for r in res)):
+        failures.append("(a)")
+
+    # (b) stage 2, FSDP + DP 2x1
+    cos_b = _held_grads("(b)", grads_b, ref_b["grads"])
+    dl_b = max(abs(x - y) for x, y in zip(r0["b"]["losses"], ref_b["losses"]))
+    _leg(15, "b_stage2_fsdp_dp", mesh="2x1", backend="gloo", ranks_on="cuda:0",
+         lm_layers=TRAIN_MESH_LAYERS, layers_per_rank=[r["b"]["local_layers"] for r in res],
+         samples_per_rank=1, losses=[r["b"]["losses"] for r in res],
+         losses_one_process=ref_b["losses"], loss_max_abs_diff=dl_b,
+         grad_cos_all_lm=cos_b[0], grad_cos_worst_layer=cos_b[1:],
+         collectives_per_micro_step=[r["b"]["collectives"] for r in res],
+         walls=[r["b"]["walls"] for r in res], walls_one_process=ref_b["walls"],
+         peak_gib_per_rank=[r["b"]["peak_gib"] for r in res],
+         peak_gib_one_process=ref_b["peak_gib"],
+         launches=[r["b"]["launches"] for r in res], leg_s=[r["b"]["leg_s"] for r in res])
+    fsdp_counts = r0["b"]["collectives"][0]
+    if (dl_b > LOSS_ATOL or min(cos_b[0], cos_b[2]) < GRAD_COS_MIN
+            or any(r["b"]["losses"] != r0["b"]["losses"] for r in res)
+            or [r["b"]["local_layers"] for r in res] != [TRAIN_MESH_LAYERS // 2] * 2
+            or not fsdp_counts.get("broadcast") or not fsdp_counts.get("broadcast_grad")):
+        failures.append("(b)")
+
+    # (c) train.run.main over the two ranks
+    losses_c = [m["loss"] for m in cli_metrics]
+    steps_c = [m["step"] for m in cli_metrics]
+    dl_c = max(abs(x - y) for x, y in zip(losses_c, cli["losses"])) if losses_c else math.inf
+    _leg(15, "c_train_run_two_ranks", argv=cli["argv"], mesh=r0["cli_mesh"],
+         n_data=r0["cli_n_data"], losses=losses_c, losses_one_process=cli["losses"],
+         loss_max_abs_diff=dl_c, metric_steps=steps_c, steps=[r["cli_step"] for r in res],
+         cli_s=[r["cli_s"] for r in res], cli_io_s=[r["cli_io_s"] for r in res],
+         launches=[r["launches_cli"] for r in res],
+         final_cfg_equal=final_cfg_equal, final_answer_launches=final_launches)
+    if (len(losses_c) != len(cli["losses"]) or dl_c > LOSS_ATOL
+            or steps_c != sorted(set(steps_c)) or not final_cfg_equal
+            or any(final_launches[k] <= 0 for k in MAIN_KERNELS)):
+        failures.append("(c)")
+
+    # (d) one NCCL rank, a 1x1 mesh: the one-process code, bitwise
+    equal_d, detail_d, counts_d = _nccl_train_leg(cli)
+    _leg(15, "d_nccl_one_rank", bitwise_equal=equal_d, **detail_d, launches=counts_d)
+    if not equal_d:
+        failures.append("(d)")
+
+    for r in res:
+        for leg in ("a", "b"):
+            if any(c != MESH_TRAIN_LAUNCHES for c in r[leg]["launches"]):
+                failures.append(f"({leg}) launches of rank {r['rank']}")
+    log(f"[15] phase 15 in {time.perf_counter() - t_phase:.1f} s (references and kernel rows "
+        f"{t_refs:.1f} s, ranks {ranks_s:.1f} s); {card()}")
+    if failures:
+        raise AssertionError(f"[15] legs failed: {failures}")
+    for row in rows:
+        row["launches"] = r0["a"]["launches"][-1][row["name"]]
+    return {"train_tp": r0["a"]["launches"][-1], "train_fsdp": r0["b"]["launches"][-1],
+            "train_cli": r0["launches_cli"], "train_nccl": counts_d}, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -3327,7 +3829,14 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    marks = []  # (after phases, seconds since the start)
+
+    def mark(name):
+        marks.append((name, round(time.perf_counter() - t_start, 1)))
+
     phase_device_build()
+    mark("1")
     from tdc_video_tpu_torch.media.build import ffmpeg_libraries
 
     # phase 8's clip leg needs FFmpeg's libraries: asked before any phase runs
@@ -3341,24 +3850,32 @@ def main() -> int:
     log(f"[2] main-path prefill shape T={T} S={S}")
     rows = phase_kernels(T, S)
     train_rows = phase_train_kernels()
+    mark("2")
     cfg, params, pred, frames = phase_main_path(rows)
     phase_flash_vs_xla(cfg, params, pred, frames)
     # K2's device time per launch in encode, beside its `ms` (host work included)
     ms, n = phase_profile(pred, frames)["encode"]["full_attention_nhd"]
     next(r for r in rows if r["name"] == "full_attention_nhd")["device_ms"] = ms / n
     ids3 = list(pred.stats.last_ids)
+    mark("3-5")
     counts10 = phase_serving_options(cfg, params, pred, frames, ids3)
+    mark("10")
     c_serve, c_chat, ids12 = phase_multi_serving(cfg, params, pred, frames)
     counts12 = {"serve": c_serve, "chat": c_chat}
+    mark("12")
     counts13, records13 = phase_eval_stream(cfg, params, has_ffmpeg)
+    mark("13")
     counts14, mesh_rows = phase_mesh(cfg, params, pred, frames, ids3, ids12, records13)
+    mark("14")
     del params, pred
     gc.collect()
     torch.cuda.empty_cache()
     params, counts6 = phase_train(cfg)
+    mark("6")
     gc.collect()
     torch.cuda.empty_cache()
     n_frames, counts7 = phase_tower_train(cfg, params)
+    mark("7")
     # launches of each training kernel on its own path, one micro-step: K5/K6
     # in the stage-2 step, K4 in the tower-trainable step
     for r in train_rows:
@@ -3374,25 +3891,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ckpt_counts, demo_counts = phase_checkpoint(has_ffmpeg, ffmpeg_msg)
+    mark("8")
     for r in rows:  # K1-K3 on phase 8's paths: the loaded checkpoint, the demo where it ran
         r["launches_checkpoint"] = ckpt_counts[r["name"]]
         r["launches_demo"] = None if demo_counts is None else demo_counts[r["name"]]
     gc.collect()
     torch.cuda.empty_cache()
     k1_av, counts_av, av = phase_audio_visual()
+    mark("9")
     k1_av["launches_av"] = counts_av["flash_kernel"]
     for r in rows + train_rows:  # each kernel's launches on phase 9's and 10's paths
         r["launches_av"] = counts_av[r["name"]]
         for leg, c in counts10.items():
             r[f"launches_{leg}"] = c[r["name"]]
-    counts11, s3_rows = phase_stage3(av, has_ffmpeg)
+    keep = tempfile.mkdtemp(prefix="tdc_stage3_cli_")  # phase 11 (e)'s model and data
+    try:
+        counts11, s3_rows, cli = phase_stage3(av, has_ffmpeg, keep)
+        mark("11")
+        del av
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts15, train_mesh_rows = phase_mesh_train(cli)
+        mark("15")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     for r in s3_rows:  # K1, K5, K6 at the stage-3 shape: launches per LoRA micro-step
         r["launches"] = counts11["lora"][r["name"]]
-    kernels = rows + train_rows + [k1_av] + s3_rows + mesh_rows
-    for r in kernels:  # each kernel on phase 11's to 14's legs (phase 14's: per rank)
+    kernels = rows + train_rows + [k1_av] + s3_rows + mesh_rows + train_mesh_rows
+    for r in kernels:  # each kernel on phase 11's to 15's legs (phases 14-15: per rank)
         for leg, c in (list(counts11.items()) + list(counts12.items()) + list(counts13.items())
-                       + list(counts14.items())):
+                       + list(counts14.items()) + list(counts15.items())):
             r[f"launches_{leg}"] = c[r["name"]]
+    log(f"[timing] seconds since the start, after each phase: {json.dumps(dict(marks))}; {card()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3401,4 +3931,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(_rank_main() if "--mesh-rank" in sys.argv else main())
+    sys.exit(_rank_main() if "--mesh-rank" in sys.argv
+             else _train_rank_main() if "--train-rank" in sys.argv else main())

@@ -166,10 +166,17 @@ def _to_device(device: torch.device, dtype: torch.dtype):
         bf16 = a.dtype == from_hf.BF16
         if bf16:
             a = a.view(np.int16)
-        t = torch.from_numpy(np.require(a, requirements=("C", "A", "W")))
+        # a transposed view of the file's [out, in] weight: copied as stored
+        # and transposed on the device (a host transpose is several times
+        # slower than a copy)
+        flip = (a.ndim >= 2 and not a.flags.c_contiguous
+                and np.swapaxes(a, -1, -2).flags.c_contiguous)
+        t = torch.from_numpy(np.require(np.swapaxes(a, -1, -2) if flip else a,
+                                        requirements=("C", "A", "W")))
         if bf16:
             t = t.view(torch.bfloat16)
-        return t.to(device, dtype) if t.is_floating_point() else t.to(device)
+        t = t.to(device, dtype) if t.is_floating_point() else t.to(device)
+        return t.transpose(-1, -2).contiguous() if flip else t
 
     return put
 

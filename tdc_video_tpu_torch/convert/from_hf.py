@@ -121,12 +121,17 @@ def _ln(sd: StateDict, prefix: str, put: Put = _contiguous) -> Dict[str, Any]:
 
 def _stack(trees, put: Put = _contiguous):
     """Stack a list of identical trees along a new leading axis, leaf by
-    leaf, each stacked leaf through `put` before the next is made."""
+    leaf, each stacked leaf through `put` before the next is made.  Leaves
+    that are transposed views of the file's weights stack as stored, under
+    a transposed view of the stack: `put` makes it contiguous (on the host,
+    or on the device after a plain copy)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees], put) for k in first}
     if isinstance(first, (list, tuple)):
         return type(first)(_stack([t[i] for t in trees], put) for i in range(len(first)))
+    if all(x.ndim == 2 and not x.flags.c_contiguous and x.T.flags.c_contiguous for x in trees):
+        return put(np.swapaxes(np.stack([x.T for x in trees], 0), -1, -2))
     return put(np.stack(trees, 0))
 
 

@@ -28,6 +28,14 @@ def _np(x) -> Array:
     return np.asarray(x, np.float32)
 
 
+def _np_t(x) -> Array:
+    """_np of x with its last two axes swapped, contiguous: a tensor is
+    transposed where it lies (on the device) before the copy to the host."""
+    if isinstance(x, torch.Tensor):
+        return _np(x.detach().to(torch.float32).transpose(-1, -2).contiguous())
+    return np.ascontiguousarray(_np(x).swapaxes(-1, -2))
+
+
 def save_safetensors(sd: Dict[str, Array], path: str, metadata: Optional[Dict[str, str]] = None) -> None:
     """Write `sd` as a safetensors file.  Each tensor's bytes are those of a
     contiguous copy, never a view's base buffer (a transposed view would
@@ -54,12 +62,12 @@ def save_safetensors(sd: Dict[str, Array], path: str, metadata: Optional[Dict[st
     with open(path, "wb") as fh:
         fh.write(len(blob).to_bytes(8, "little"))
         fh.write(blob)
-        for k in order:
-            fh.write(arrays[k].tobytes())
+        for k in order:  # each array's own buffer, no copy
+            fh.write(memoryview(arrays[k].reshape(-1).view(np.uint8)))
 
 
 def _lin(sd: Dict[str, Array], name: str, p) -> None:
-    sd[name + ".weight"] = np.ascontiguousarray(_np(p["w"]).T)
+    sd[name + ".weight"] = _np_t(p["w"])
     if "b" in p:
         sd[name + ".bias"] = _np(p["b"])
 
@@ -95,7 +103,7 @@ def export_lm(params, cfg, prefix: str = "model.") -> Dict[str, Array]:
         _lin(sd, lp + "mlp.down_proj", L["mlp"]["down"])
     sd[prefix + "norm.weight"] = _np(params["final_norm"]["scale"])
     if "lm_head" in params:
-        sd["lm_head.weight"] = np.ascontiguousarray(_np(params["lm_head"]["w"]).T)
+        sd["lm_head.weight"] = _np_t(params["lm_head"]["w"])
     return sd
 
 

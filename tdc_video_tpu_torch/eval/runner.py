@@ -55,7 +55,7 @@ from ..media.io import window_audio
 from ..model import encode_audio, encode_frames, prepare_multimodal_from_features
 from ..ops.audio import second_groups
 from ..parallel.mesh import DATA_AXIS
-from ..serving.generate import generate_encoded
+from ..serving.generate import generate_encoded, inference_params
 
 
 LETTERS = ["A", "B", "C", "D", "E"]
@@ -193,6 +193,7 @@ class TDCPredictor:
     ):
         self.cfg = cfg
         self.mesh = mesh
+        params = inference_params(params)
         if mesh is not None:
             from ..models.lm import tp_size
             from ..parallel.sharding import shard_tree, tdc_param_spec

@@ -34,6 +34,7 @@ from .models.vit import init_vit, vit_forward
 from .ops.audio import kaldi_fbank, pool_seconds_to_frames, window_to_seconds
 from .ops.pooling import adaptive_pool_matrix
 from .ops.segment import segment_boundaries
+from .parallel.autograd import gather_from
 from .parallel.mesh import DATA_AXIS
 
 Params = Any
@@ -104,19 +105,21 @@ def encode_frames(
     mesh: the T frames split over its `data` axis (which must divide T):
     this rank encodes its contiguous share, and an all_gather over `data`
     gives every rank the whole result (the towers and the SVA are per-frame
-    compute, so the numbers are those of one encode of all T frames)."""
+    compute, so the numbers are those of one encode of all T frames).  The
+    gather has a backward (parallel/autograd.gather_from): each rank's
+    gradient of the whole result gives its share's, so a loss every rank
+    computes whole gives each rank the gradients of its frames' encode
+    (the SVA's summed over `data` are one process's)."""
     if mesh is not None and mesh.size(DATA_AXIS) > 1:
-        if remat:
-            raise NotImplementedError("encode over a mesh has no backward (slice 13)")
         n, T = mesh.size(DATA_AXIS), siglip_px.shape[0]
         if T % n:
             raise ValueError(f"data axis {n} does not divide {T} frames")
         d = mesh.coords[DATA_AXIS]
         share = slice(d * (T // n), (d + 1) * (T // n))
-        ff, df = encode_frames(cfg, params, siglip_px[share], dino_px[share], attn_impl,
+        ff, df = encode_frames(cfg, params, siglip_px[share], dino_px[share], attn_impl, remat,
                                frame_indices=None if frame_indices is None
                                else frame_indices[share])
-        return mesh.all_gather(ff, DATA_AXIS), mesh.all_gather(df, DATA_AXIS)
+        return gather_from(ff, mesh, DATA_AXIS), gather_from(df, mesh, DATA_AXIS)
     dt = cfg.dtype
     dino_feats = vit_forward(cfg.dino, params["dino"], dino_px, attn_impl=attn_impl, dtype=dt)
     siglip_feats = vit_forward(cfg.siglip, params["siglip"], siglip_px, attn_impl=attn_impl, dtype=dt)
@@ -220,13 +223,17 @@ def prepare_multimodal_inputs(
     attn_impl: str = "xla",
     remat_encode: bool = False,
     mesh=None,
+    split_frames: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Encode every frame of the batch as one tower batch, then compress and
     splice (JAX :250-341): dict(embeds [B, max_len, H], attn_mask, labels,
     seq_len).  With frame_pos and no frame_indices, each frame's index is
     its position (JAX :288-291).  Raw audio windows are encoded per sample
     in the graph, so that gradients reach BEATs and audio_proj when they
-    train; each sample's encode is checkpointed under remat_encode."""
+    train; each sample's encode is checkpointed under remat_encode.  mesh:
+    the embedding's vocabulary split over `model`, and the frames over
+    `data` (encode_frames) unless split_frames is False (training, where
+    the samples are split over `data` instead)."""
     B, T = frame_mask.shape
     if frame_indices is None and cfg.compression.frame_pos:
         frame_indices = torch.arange(T, device=frame_mask.device)[None].expand(B, T)
@@ -246,7 +253,8 @@ def prepare_multimodal_inputs(
     flat_dino = dino_px.reshape((B * T,) + dino_px.shape[2:])
     frame_feats, dino_feats = encode_frames(
         cfg, params, flat_sig, flat_dino, attn_impl=attn_impl, remat=remat_encode,
-        frame_indices=None if frame_indices is None else frame_indices.reshape(B * T), mesh=mesh)
+        frame_indices=None if frame_indices is None else frame_indices.reshape(B * T),
+        mesh=mesh if split_frames else None)
     P = frame_feats.shape[1]
     return prepare_multimodal_from_features(
         cfg, params, input_ids, image_pos, frame_feats.reshape(B, T, P, -1),
@@ -359,10 +367,19 @@ def tdc_loss(
     attn_impl: str = "xla",
     remat: bool = True,
     loss_chunk: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Training loss for a multimodal batch (JAX :485-535): encode, compress,
     splice, LM cross-entropy.  Audio comes as precomputed `audio_tokens` or
-    as raw `audio_windows` with their masks and second groups."""
+    as raw `audio_windows` with their masks and second groups.
+
+    mesh: `batch` is this rank's share of the samples (the batch split over
+    `data`, parallel/sharding.batch_spec) and `params` its shard
+    (tdc_param_spec): the towers, SVA and compressor run whole on the
+    rank's samples, the LM tensor-parallel over `model` and FSDP over
+    `data` (models/lm.lm_loss).  Every rank returns the whole batch's loss;
+    its backward gives the rank's share of the gradients (the trainer sums
+    what every rank holds whole over `data`)."""
     mm = prepare_multimodal_inputs(
         cfg, params, batch["input_ids"], batch["image_pos"], batch["siglip_px"],
         batch["dino_px"], batch["frame_mask"], batch.get("qformer_text_ids"),
@@ -375,7 +392,8 @@ def tdc_loss(
         text_len=batch.get("text_len"),
         has_image=batch.get("has_image"), token_valid=batch.get("token_valid"),
         query_pool=batch.get("query_pool"), max_len=max_len, max_visual_len=max_visual_len,
-        attn_impl=attn_impl, remat_encode=remat,
+        attn_impl=attn_impl, remat_encode=remat, mesh=mesh, split_frames=False,
     )
     return lm_mod.lm_loss(cfg.lm, params["lm"], mm["embeds"], mm["labels"], mm["attn_mask"],
-                          attn_impl=attn_impl, remat=remat, dtype=cfg.dtype, loss_chunk=loss_chunk)
+                          attn_impl=attn_impl, remat=remat, dtype=cfg.dtype, loss_chunk=loss_chunk,
+                          mesh=mesh)

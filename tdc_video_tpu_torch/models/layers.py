@@ -22,6 +22,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.autograd import copy_to, reduce_from
 from ..parallel.mesh import MODEL_AXIS
 
 Params = Any
@@ -198,27 +199,52 @@ def row_amax(x: torch.Tensor, mesh) -> torch.Tensor:
     return mesh.all_reduce(amax, MODEL_AXIS, op="max")
 
 
+def _lora_part(p: Params, mesh, key: str, dim: int, width: int) -> Params:
+    """p with its LoRA factor `key` cut to this rank's `width` entries of
+    `dim` along the model axis (adapters are whole on every rank)."""
+    if key not in p:
+        return p
+    t = p[key]
+    return dict(p, **{key: t.narrow(dim, mesh.coords[MODEL_AXIS] * width, width)})
+
+
+def column_parallel_linear(p: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """`linear` of a weight whose output dim is split over the mesh's model
+    axis (q/k/v, gate and up under tensor parallelism): this rank's columns.
+    x is an activation every rank of the axis holds whole, passed through
+    parallel.autograd.copy_to once by the caller for all the weights that
+    read it (its gradient is then summed over the axis once).
+
+    LoRA under TP keeps A and B whole on every rank (replicated A/B): here
+    y = x @ W_cols + (x @ A) @ B[:, cols], and each rank's gradient of A and
+    B is a part of the whole, which the trainer sums over `model`."""
+    if mesh is None or mesh.size(MODEL_AXIS) == 1:
+        return linear(p, x)
+    w = p["w_q" if "w_q" in p else "w"]
+    return linear(_lora_part(p, mesh, "lora_b", -1, w.shape[-1]), x)
+
+
 def row_parallel_linear(p: Params, x: torch.Tensor, mesh=None,
                         act_quant: bool = False) -> torch.Tensor:
     """`linear` of a weight whose input dim is split over the mesh's model
     axis (o_proj and down under tensor parallelism): each rank's product of
-    its slice of x with its rows of the weight, summed over the axis, then
-    the bias once.  With act_quant and int8 weights, x is quantized with
-    the whole row's scale (row_amax): a rank's own amax would give another
-    scale than the unsharded model's.  A weight-only int8 `w_scale` scales
-    output channels, so it applies to each partial product before the sum.
-    mesh None (or a model axis of 1) is `linear`."""
+    its slice of x with its rows of the weight, summed over the axis
+    (parallel/autograd.reduce_from), then the bias once.  With act_quant and
+    int8 weights, x is quantized with the whole row's scale (row_amax): a
+    rank's own amax would give another scale than the unsharded model's.  A
+    weight-only int8 `w_scale` scales output channels, so it applies to each
+    partial product before the sum.  LoRA: x_rows @ A[rows] @ B inside the
+    sum (A and B whole on every rank, column_parallel_linear).  mesh None
+    (or a model axis of 1) is `linear`."""
     if mesh is None or mesh.size(MODEL_AXIS) == 1:
         return linear(p, x, act_quant=act_quant)
-    if "lora_a" in p:
-        raise NotImplementedError("LoRA adapters under tensor parallelism (slice 13)")
     local = {k: v for k, v in p.items() if k != "b"}
     if act_quant and "w_q" in p:
         scale = torch.clamp_min(row_amax(x, mesh) / 127.0, 1e-8)
         y = int8_dot(*int8_qact(x, scale), local, x.dtype)
     else:
-        y = linear(local, x)
-    y = mesh.all_reduce(y.contiguous(), MODEL_AXIS)
+        y = linear(_lora_part(local, mesh, "lora_a", -2, x.shape[-1]), x)
+    y = reduce_from(y, mesh, MODEL_AXIS)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -226,13 +252,16 @@ def row_parallel_linear(p: Params, x: torch.Tensor, mesh=None,
 
 def swiglu_mlp(p: Params, x: torch.Tensor, act_quant: bool = False, mesh=None) -> torch.Tensor:
     """down(silu(gate(x)) * up(x)); under a mesh, gate and up hold this
-    rank's I/n columns and down its I/n rows (row_parallel_linear)."""
+    rank's I/n columns and down its I/n rows (column_parallel_linear,
+    row_parallel_linear)."""
     if act_quant and "w_q" in p["gate"]:
         # one shared activation quantization feeds both gate and up
         xq, xs = int8_qact(x)
         h = F.silu(int8_dot(xq, xs, p["gate"], x.dtype)) * int8_dot(xq, xs, p["up"], x.dtype)
         return row_parallel_linear(p["down"], h, mesh, act_quant=True)
-    return row_parallel_linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x), mesh)
+    x = copy_to(x, mesh, MODEL_AXIS)
+    gate, up = (column_parallel_linear(p[n], x, mesh) for n in ("gate", "up"))
+    return row_parallel_linear(p["down"], F.silu(gate) * up, mesh)
 
 
 # ---------------------------------------------------------------------------

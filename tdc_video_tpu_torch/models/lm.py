@@ -31,6 +31,13 @@ head's logits over each rank's vocabulary slice gathered in rank order, so
 that every rank holds the full f32 logits and takes the same token.  The
 cache holds num_kv_heads/n heads a rank (kv_cache_spec).  mesh=None is
 the one-device code.
+
+Training over a mesh: the same TP with gradients through the collectives
+(parallel/autograd.py: copy_to before the column-parallel products,
+reduce_from after the row-parallel ones and the embedding), a stacked
+layer axis split over `data` (FSDP: each layer broadcast from its holder
+inside its checkpoint), and lm_loss vocabulary-parallel over `model` and
+one mean over the whole batch over `data`.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LMConfig
 from ..device import resolve_device
-from ..parallel.mesh import MODEL_AXIS
+from ..parallel.autograd import broadcast_from, copy_to, reduce_from
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .attention import attention
 from .layers import (
     apply_rope,
+    column_parallel_linear,
     dot_f32,
     init_linear,
     init_rms_norm,
@@ -181,7 +190,14 @@ def _layer_forward(
     act_quant: bool = False,
     verify: bool = False,
     mesh=None,
+    fsdp_src: Optional[int] = None,
 ) -> torch.Tensor:
+    """One decoder layer.  fsdp_src: the `data` coordinate of the rank that
+    holds this layer (FSDP): `p` is that rank's layer there and a stand-in
+    of the same structure elsewhere, and the layer is broadcast from it here,
+    inside the layer's checkpoint, so that remat broadcasts it again."""
+    if fsdp_src is not None:
+        p = _map_leaves(lambda t: broadcast_from(t, mesh, DATA_AXIS, fsdp_src), p)
     B, T, _ = x.shape
     h = rms_norm(p["input_norm"], x, cfg.rms_norm_eps)
     if act_quant and "w_q" in p["q_proj"]:
@@ -189,7 +205,8 @@ def _layer_forward(
         hq, hs = int8_qact(h)
         q, k, v = (int8_dot(hq, hs, p[n], x.dtype) for n in ("q_proj", "k_proj", "v_proj"))
     else:
-        q, k, v = (linear(p[n], h) for n in ("q_proj", "k_proj", "v_proj"))
+        h = copy_to(h, mesh, MODEL_AXIS)
+        q, k, v = (column_parallel_linear(p[n], h, mesh) for n in ("q_proj", "k_proj", "v_proj"))
     # this rank's heads: all of them, or num_heads/n and num_kv_heads/n under TP
     q = apply_rope(q.reshape(B, T, -1, cfg.head_dim), cos, sin)
     k = apply_rope(k.reshape(B, T, -1, cfg.head_dim), cos, sin)
@@ -246,8 +263,12 @@ def lm_backbone(
     layer inputs and recomputes each layer's internals (JAX :241-242).
     verify=True marks a multi-token step over a non-empty cache (speculative
     verify), which reads the whole cache rather than treating T > 1 as a
-    single-shot prefill.  mesh: tensor-parallel over its model axis; a
-    stacked layer axis split over `data` (FSDP) raises."""
+    single-shot prefill.  mesh: tensor-parallel over its model axis, and
+    FSDP where `params["layers"]` holds num_layers / n of the layers (the
+    stacked axis split over a `data` axis of n, parallel/sharding.py): the
+    rank at data coordinate d holds layers [d L/n, (d+1) L/n), and each
+    layer is broadcast from its holder inside its (checkpointed) layer
+    function."""
     x = inputs_embeds.to(dtype)
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device)
     cos, sin = rope_cos_sin(positions, inv_freq)
@@ -255,23 +276,49 @@ def lm_backbone(
     if remat:
         layer_fn = functools.partial(checkpoint, layer_fn, use_reentrant=False)
     layers = params["layers"]
-    if mesh is not None and not isinstance(layers, list):
-        n_stacked = layers["input_norm"]["scale"].shape[0]
-        if n_stacked != cfg.num_layers:
-            raise NotImplementedError(
-                f"{n_stacked} of {cfg.num_layers} stacked layers: a layer axis split over "
-                "`data` (FSDP) is not run yet (ROADMAP.md queue 1, slice 13)")
+    per = fsdp_layers(cfg, layers, mesh)
     int8_kv = cache is not None and "k_scale" in cache
     for i in range(cfg.num_layers):
-        lp = layer_params(layers, i)
+        src = None
+        if per:  # FSDP: the holder's layer; elsewhere the rank's first as a stand-in
+            src = i // per
+            lp = layer_params(layers, i - src * per if src == mesh.coords[DATA_AXIS] else 0)
+        else:
+            lp = layer_params(layers, i)
         ck = cv = None
         if int8_kv:
             ck, cv = (cache["k"][i], cache["k_scale"][i]), (cache["v"][i], cache["v_scale"][i])
         elif cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
         x = layer_fn(lp, x, cos, sin, attn_mask, ck, cv, write_pos, attn_impl, causal, act_quant,
-                     verify, mesh)
+                     verify, mesh, src)
     return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _first_leaf(tree):
+    return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) else tree
+
+
+def fsdp_layers(cfg: LMConfig, layers, mesh=None) -> int:
+    """How many layers a rank holds when the layer axis is split over
+    `data` (FSDP), else 0: `layers` (stacked, or a list of per-layer trees)
+    holds num_layers / n of them on a data axis of n.  Any other count
+    raises ValueError."""
+    n_local = len(layers) if isinstance(layers, list) else _first_leaf(layers).shape[0]
+    if n_local == cfg.num_layers:
+        return 0
+    n = 1 if mesh is None else mesh.size(DATA_AXIS)
+    if n_local * n != cfg.num_layers:
+        raise ValueError(f"{n_local} of {cfg.num_layers} layers on this rank: a layer axis split "
+                         f"over `data` needs a data axis of {cfg.num_layers / n_local:g}, the "
+                         f"mesh has {n}")
+    return n_local
 
 
 def _tree_index(tree, i: int):
@@ -299,7 +346,7 @@ def embed_tokens(cfg: LMConfig, params: Params, input_ids: torch.Tensor, dtype=t
     local = ids - mesh.coords[MODEL_AXIS] * rows
     mine = (local >= 0) & (local < rows)
     x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0)
-    return mesh.all_reduce(x, MODEL_AXIS)
+    return reduce_from(x, mesh, MODEL_AXIS)
 
 
 def head_weight(cfg: LMConfig, params: Params, dtype
@@ -322,13 +369,19 @@ def lm_head(cfg: LMConfig, params: Params, hidden: torch.Tensor, head=None,
     when the caller casts the weight once for many calls (lm_loss).  Under
     TP each rank's logits over its vocabulary slice, gathered over `model`
     in rank order: every rank gets the full logits."""
+    y = _local_logits(cfg, params, hidden, head)
+    if tp_size(cfg, mesh) == 1:
+        return y
+    return mesh.all_gather(y, MODEL_AXIS, dim=-1)
+
+
+def _local_logits(cfg: LMConfig, params: Params, hidden, head=None) -> torch.Tensor:
+    """f32 logits over the vocabulary (slice) this rank's head holds."""
     w, master = head_weight(cfg, params, hidden.dtype) if head is None else head
     y = dot_f32(hidden, w, master)
     if master is None:  # weight-only int8 head
         y = y * params["lm_head"]["w_scale"]
-    if tp_size(cfg, mesh) == 1:
-        return y
-    return mesh.all_gather(y, MODEL_AXIS, dim=-1)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -348,13 +401,15 @@ def lm_forward(
     dtype=torch.bfloat16,
     return_hidden: bool = False,
     act_quant: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Full-sequence causal forward (training / scoring): f32 logits [B,T,V],
     or the final hidden states when return_hidden (the chunked loss applies
     the head itself).  act_quant=True runs int8 weights' projections s8 x s8.
-    JAX's seq_axis (sequence sharding) is not ported."""
+    mesh: TP and FSDP as lm_backbone (the logits gathered over `model`).
+    JAX's seq_axis (sequence sharding) is not ported (ROADMAP.md)."""
     if inputs_embeds is None:
-        inputs_embeds = embed_tokens(cfg, params, input_ids, dtype)
+        inputs_embeds = embed_tokens(cfg, params, input_ids, dtype, mesh)
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     if attention_mask is None:
@@ -364,16 +419,35 @@ def lm_forward(
     causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
     mask = causal[None, None] & attention_mask.to(torch.bool)[:, None, None, :]
     hidden, _ = lm_backbone(cfg, params, inputs_embeds, positions, mask, attn_impl=attn_impl,
-                            dtype=dtype, causal=True, remat=remat, act_quant=act_quant)
+                            dtype=dtype, causal=True, remat=remat, act_quant=act_quant,
+                            mesh=mesh)
     if return_hidden:
         return hidden
-    return lm_head(cfg, params, hidden)
+    return lm_head(cfg, params, hidden, mesh=mesh)
 
 
-def _token_ll(cfg: LMConfig, params: Params, hidden, targets, valid, head) -> torch.Tensor:
-    """Sum over valid positions of log p(target): f32 head and log-softmax."""
-    logp = torch.log_softmax(lm_head(cfg, params, hidden, head).float(), dim=-1)
-    ll = torch.take_along_dim(logp, targets[..., None].long(), dim=-1)[..., 0]
+def _token_ll(cfg: LMConfig, params: Params, hidden, targets, valid, head,
+              mesh=None) -> torch.Tensor:
+    """Sum over valid positions of log p(target): f32 head and log-softmax.
+
+    Under TP, vocabulary-parallel: each rank's logits over its vocabulary
+    slice (the hidden states entering through copy_to), and per row the max
+    over `model`, the sum of exp(logit - max) and the target's logit (from
+    the rank whose slice holds it), each summed over `model` with
+    reduce_from: a few floats a row cross the axis, never the logits."""
+    if tp_size(cfg, mesh) == 1:
+        logp = torch.log_softmax(lm_head(cfg, params, hidden, head).float(), dim=-1)
+        ll = torch.take_along_dim(logp, targets[..., None].long(), dim=-1)[..., 0]
+        return (ll * valid).sum()
+    logits = _local_logits(cfg, params, copy_to(hidden, mesh, MODEL_AXIS), head)
+    V = logits.shape[-1]
+    top = mesh.all_reduce(logits.detach().amax(dim=-1, keepdim=True), MODEL_AXIS, op="max")
+    sum_exp = reduce_from(torch.exp(logits - top).sum(dim=-1), mesh, MODEL_AXIS)
+    local = targets.long() - mesh.coords[MODEL_AXIS] * V
+    mine = (local >= 0) & (local < V)
+    t = torch.take_along_dim(logits, local.clamp(0, V - 1)[..., None], dim=-1)[..., 0]
+    t = reduce_from(torch.where(mine, t, 0.0), mesh, MODEL_AXIS)
+    ll = t - top[..., 0] - torch.log(sum_exp)
     return (ll * valid).sum()
 
 
@@ -388,6 +462,7 @@ def lm_loss(
     remat: bool = True,
     dtype=torch.bfloat16,
     loss_chunk: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Shifted cross-entropy over valid label positions (JAX :362-443).
 
@@ -396,26 +471,37 @@ def lm_loss(
     [B, C, V] f32 logits instead of holding the full [B, T, V] (4.2 GB per
     buffer at 8k tokens and a 128k vocabulary).  The head weight is cast to
     the compute dtype once, outside the chunks and their recompute, and its
-    gradient accumulates in the master's dtype (layers.dot_f32)."""
+    gradient accumulates in the master's dtype (layers.dot_f32).
+
+    mesh: TP and FSDP as lm_backbone, the cross-entropy vocabulary-parallel
+    (_token_ll).  Over a `data` axis each rank holds its share of the
+    batch's samples: the mean is over the valid positions of the whole
+    batch (their count summed over `data`, JAX :389), and each rank's sum is
+    summed over `data` with reduce_from, so every rank returns the batch's
+    loss and its backward gives the rank's share of the gradients."""
     targets = labels[:, 1:]
     valid = targets >= 0
     safe_targets = torch.where(valid, targets, 0).clamp(0, cfg.vocab_size - 1)
-    denom = valid.sum().clamp_min(1)
+    denom = valid.sum()
+    if mesh is not None:
+        denom = mesh.all_reduce(denom, DATA_AXIS)
+    denom = denom.clamp_min(1)
     hidden = lm_forward(cfg, params, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
                         positions=positions, attn_impl=attn_impl, remat=remat, dtype=dtype,
-                        return_hidden=True)
+                        return_hidden=True, mesh=mesh)
     h = hidden[:, :-1]
     vf = valid.to(torch.float32)
     head = head_weight(cfg, params, dtype)
     if loss_chunk is None:
-        return -_token_ll(cfg, params, h, safe_targets, vf, head) / denom
-    C = int(loss_chunk)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c0 in range(0, h.shape[1], C):
-        sl = slice(c0, c0 + C)
-        total = total + checkpoint(_token_ll, cfg, params, h[:, sl], safe_targets[:, sl], vf[:, sl],
-                                   head, use_reentrant=False)
-    return -total / denom
+        total = _token_ll(cfg, params, h, safe_targets, vf, head, mesh)
+    else:
+        C = int(loss_chunk)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, h.shape[1], C):
+            sl = slice(c0, c0 + C)
+            total = total + checkpoint(_token_ll, cfg, params, h[:, sl], safe_targets[:, sl],
+                                       vf[:, sl], head, mesh, use_reentrant=False)
+    return reduce_from(-total / denom, mesh, DATA_AXIS)
 
 
 # ---------------------------------------------------------------------------

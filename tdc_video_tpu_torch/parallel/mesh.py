@@ -132,6 +132,23 @@ class Mesh:
             dist.all_reduce(x, op=_OPS[op], group=self._groups[axis])
         return x
 
+    def rank_at(self, axis: str, coord: int) -> int:
+        """The global rank at `coord` on this rank's line of `axis`."""
+        d, m = self.coords[DATA_AXIS], self.coords[MODEL_AXIS]
+        if axis == DATA_AXIS:
+            d = coord
+        else:
+            m = coord
+        return d * self.shape[MODEL_AXIS] + m
+
+    def broadcast(self, x: torch.Tensor, axis: str, src: int) -> torch.Tensor:
+        """x of the rank at coordinate `src` of the axis, in place on every
+        rank of this rank's line (x contiguous, of the same shape and dtype
+        everywhere); returns x."""
+        if self.size(axis) > 1:
+            dist.broadcast(x, src=self.rank_at(axis, src), group=self._groups[axis])
+        return x
+
     def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
         """Every rank's x along the axis, concatenated on `dim` in rank order
         (the list form of all_gather, which gloo has for CUDA tensors)."""

@@ -14,8 +14,8 @@ shorter tuple leaves the trailing dims whole), the same entries as
   row-parallel weight keeps it whole: it scales output channels, so each
   partial product may be scaled before the sum).
 * FSDP (fsdp_size > 0): the stacked layer axis also splits over `data`
-  when it divides.  The specs are JAX's; the LM in this package does not
-  run such a tree yet (models/lm.lm_backbone raises).
+  when it divides (models/lm.lm_backbone broadcasts each layer from its
+  holder).
 * Towers, SVA, Q-Former, compressor and BEATs stay whole on every rank;
   their work splits over the frames on `data` (model.encode_frames).
 

@@ -52,7 +52,7 @@ import torch
 from ..config import TDCConfig
 from ..device import resolve_device
 from ..models import lm as lm_mod
-from .generate import sample_rows
+from .generate import inference_params, sample_rows
 
 Params = Any
 
@@ -179,7 +179,7 @@ class DecodeEngine:
         if prefill_chunk < 0 or prefill_chunk > capacity:
             raise ValueError(f"prefill_chunk {prefill_chunk} not in [0, {capacity}]")
         self.cfg = cfg
-        self.params = params
+        self.params = inference_params(params)
         self.num_slots = num_slots
         self.capacity = capacity
         self.chunk_tokens = chunk_tokens

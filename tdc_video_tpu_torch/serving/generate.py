@@ -34,6 +34,19 @@ from ..model import prepare_multimodal_from_features, prepare_multimodal_inputs
 from ..models import lm as lm_mod
 from . import prng
 
+
+def inference_params(tree: Any) -> Any:
+    """The tree with every tensor detached (a view of the same storage, no
+    copy): serving records no autograd graph even over leaves that require
+    grad, such as a trainer's export.  Such a graph would otherwise live as
+    long as the KV cache it writes into in place, and hold every
+    activation it saved."""
+    if isinstance(tree, dict):
+        return {k: inference_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(inference_params(v) for v in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
 Params = Any
 
 # decode steps between two host reads of the stop condition

@@ -32,6 +32,7 @@ from ..config import TDCConfig
 from ..data.images import device_preprocess, process_frames
 from ..device import resolve_device, synchronize
 from ..model import encode_frames, prepare_visual
+from .generate import inference_params
 
 
 @dataclass
@@ -127,7 +128,7 @@ class StreamingEncoder:
             raise ValueError(f"chunk_frames {chunk_frames} does not divide by the mesh's data "
                              f"axis ({mesh.size('data')})")
         self.cfg = cfg
-        self.params = params
+        self.params = inference_params(params)
         self.chunk_frames = chunk_frames
         self.max_frames = max_frames
         self.prefetch = prefetch

@@ -89,14 +89,25 @@ class GroupedAdamW:
     """AdamW over labelled groups of leaf tensors after one global-norm clip
     over all of them: optax.chain(clip_by_global_norm(grad_clip),
     multi_transform({label: adamw(schedule, b1, b2, weight_decay=wd)})).
-    groups: {label: (tensors, weight_decay, schedule)}."""
+    groups: {label: (tensors, weight_decay, schedule)}.
+
+    Over a mesh (parallel/mesh.py) each rank holds shards: `split_axes(t)`
+    names the axes leaf t is split over (parallel/sharding's spec entries).
+    The clip's norm is the whole gradient's: each leaf's squared norm is
+    summed over the axes it is split over, and a leaf every rank holds
+    whole (its gradient already summed over the mesh, train/trainer.py)
+    counts once.
+    AdamW is elementwise and runs on the shards as they are."""
 
     def __init__(self, groups: Dict[str, Tuple[Sequence[torch.Tensor], float, Schedule]],
-                 grad_clip: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 grad_clip: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 mesh=None, split_axes: Optional[Callable[[torch.Tensor], tuple]] = None):
         groups = {k: g for k, g in groups.items() if len(g[0])}
         self.params = [t for ts, _, _ in groups.values() for t in ts]
         if not self.params:
             raise ValueError("no trainable parameters")
+        self.mesh = mesh
+        self.split = [() if split_axes is None else tuple(split_axes(t)) for t in self.params]
         for t in self.params:
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
@@ -109,15 +120,17 @@ class GroupedAdamW:
         )
         self.grad_clip = grad_clip
         self.count = 0
+        self.norm = None
 
     def zero_grad(self) -> None:
         torch._foreach_zero_([t.grad for t in self.params])
 
     @torch.no_grad()
     def step(self) -> None:
-        """Clip, update with lr = schedule(count), count += 1, zero the grads."""
+        """Clip, update with lr = schedule(count), count += 1, zero the grads.
+        `norm` keeps the global norm the clip saw (a device scalar)."""
         grads = [t.grad for t in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.norm = self._global_norm(grads)
         scale = torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
         torch._foreach_mul_(grads, scale)
         for g, sched in zip(self.opt.param_groups, self.schedules):
@@ -125,6 +138,23 @@ class GroupedAdamW:
         self.opt.step()
         self.count += 1
         self.zero_grad()
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        norms = torch._foreach_norm(grads)
+        if self.mesh is None:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+        # squared norms by the axes each leaf is split over, each sum over them
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        for axes in sorted(set(self.split)):
+            sq = sum(n.float() ** 2 for n, a in zip(norms, self.split) if a == axes)
+            if DATA_AXIS in axes and MODEL_AXIS in axes:
+                sq = self.mesh.all_reduce(sq, None)
+            elif axes:
+                sq = self.mesh.all_reduce(sq, axes[0])
+            total = total + sq
+        return torch.sqrt(total)
 
 
 def split_layers(t: torch.Tensor) -> list:

@@ -1,7 +1,7 @@
 """Trainer: freeze policy, per-module LR groups, AdamW with a warmup cosine
 schedule, gradient accumulation, LoRA and QLoRA, checkpoints, the merged
-export and metrics logging (port of tdc_video_tpu/train/trainer.py, one
-device).
+export and metrics logging, on one device or over a mesh (port of
+tdc_video_tpu/train/trainer.py).
 
 What the JAX trainer does and this one matches: the freeze flags give a
 trainable mask (`trainable_mask`); frozen leaves get no gradient (JAX's
@@ -26,11 +26,35 @@ Divergences, each deliberate:
   another rounding order, and needs no second gradient-sized buffer;
 * checkpoints are the port's own layout (`save`), not Orbax directories,
   which the port does not read;
-* training over a device mesh (DP, FSDP, TP) is not ported: `mesh` raises
-  NotImplementedError (one device; serving and evaluation run over a mesh,
-  parallel/);
 * the trainer sets requires_grad on the caller's parameter tensors in place,
   and updates them in place; `restore_if_available` copies into them.
+
+Over a mesh (`mesh=`, parallel/mesh.py: one process a device; JAX's
+trainer always builds one over every device) each rank runs the step on its
+shards, with the collectives explicit:
+
+* the parameters are cut as JAX cuts them (parallel/sharding.tdc_param_spec
+  with fsdp_size = the data axis): the LM tensor-parallel over `model`, its
+  stacked layer axis over `data` (FSDP, where the axis divides the layer
+  count), the other modules whole; quantize_frozen quantizes before the cut;
+* LoRA adapters are whole over `model` (replicated A/B: each rank's partial
+  gradient is summed over `model`) and split over `data` with their layers
+  under FSDP (the layer's broadcast carries them);
+* each batch is padded to a multiple of the data axis with loss-inert rows
+  and each rank takes its contiguous share of the samples (batch_spec);
+* the loss is the whole batch's (one mean over its valid positions, equal
+  on every rank); after the last micro-step of an optimizer step every
+  trainable leaf that a rank of `data` holds whole has its gradient summed
+  over `data` (an FSDP layer's is summed at its holder by the broadcast's
+  backward), the adapters' over `model`, and the other leaves whole over
+  `model` take model rank 0's gradient (so that every replica stays
+  bitwise equal); the clip's norm is the whole gradient's (GroupedAdamW);
+* rank 0 alone logs and writes checkpoints, each gathered into the
+  one-process layout, so that a checkpoint restores on any mesh (each rank
+  cuts its shard of what it reads); export_merged returns whole tensors on
+  rank 0 and None on the others.
+
+A mesh of one rank runs the one-process code.
 """
 
 from __future__ import annotations
@@ -52,6 +76,8 @@ from ..config import TDCConfig
 from ..constants import IGNORE_INDEX
 from ..device import resolve_device
 from ..model import tdc_loss
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, warmup_collectives
+from ..parallel.sharding import local_slice, shard_tree, tdc_param_spec
 from . import lora as lora_lib
 from .step import (
     GroupedAdamW,
@@ -200,9 +226,11 @@ def opt_labels(params: Params, mask: Params, tcfg: TrainConfig) -> Params:
     return tree_map_with_path(label, params)
 
 
-def build_optimizer(params: Params, tcfg: TrainConfig, total_steps: int):
+def build_optimizer(params: Params, tcfg: TrainConfig, total_steps: int, mesh=None,
+                    split_axes=None):
     """Masked, grouped AdamW with the schedule; returns (optimizer, mask) and
-    sets requires_grad on `params` from the mask."""
+    sets requires_grad on `params` from the mask.  mesh, split_axes: as
+    GroupedAdamW's."""
     mask = trainable_mask(params, tcfg)
     set_trainable(params, mask)
     group_lrs = {
@@ -220,7 +248,18 @@ def build_optimizer(params: Params, tcfg: TrainConfig, total_steps: int):
         for d, wd in (("wd", tcfg.weight_decay), ("nd", 0.0)):
             groups[f"{g}:{d}"] = (members.get(f"{g}:{d}", []), wd,
                                   make_schedule(tcfg, total_steps, lr))
-    return GroupedAdamW(groups, tcfg.grad_clip), mask
+    return GroupedAdamW(groups, tcfg.grad_clip, mesh=mesh, split_axes=split_axes), mask
+
+
+def lora_spec(lora: Params, fsdp_size: int = 0) -> Params:
+    """Spec tree of a LoRA tree over a mesh: whole over `model`, and a stacked
+    layer adapter split over `data` where its base layer is (lm_param_spec's
+    rule: fsdp_size > 0 dividing the layer count)."""
+    def spec(key, t):
+        split = key.startswith("layers/") and fsdp_size > 0 and t.shape[0] % fsdp_size == 0
+        return (DATA_AXIS,) if split else ()
+
+    return {k: {n: spec(k, t) for n, t in ab.items()} for k, ab in lora.items()}
 
 
 class Trainer:
@@ -237,17 +276,30 @@ class Trainer:
     ):
         """`lora_key`: a torch.Generator (or an int seed) for init_lora's A,
         default tcfg.seed; `lora`: a given adapter tree ({key: {a, b}}, e.g.
-        a JAX tree through convert/from_numpy) instead of a fresh one."""
-        if mesh is not None:
-            raise NotImplementedError("training over a device mesh (DP, FSDP, TP) is not ported: "
-                                      "one device (ROADMAP.md queue 1 item 6, slice 13)")
+        a JAX tree through convert/from_numpy) instead of a fresh one.
+
+        mesh: a parallel/mesh.Mesh over every rank of the process group, each
+        rank constructing its Trainer with the same whole `params` on its
+        device (the mesh's) and the same seed; each keeps its shard (module
+        docstring).  A mesh of one rank is the one-process trainer."""
         if not tcfg.lora_enable and (lora is not None or lora_key is not None):
             raise ValueError("a LoRA tree or key was given without lora_enable")
         self.cfg = cfg
         self.tcfg = tcfg
         self.total_steps = total_steps
+        if mesh is not None:
+            device = mesh.device
+            if mesh.size() == 1:
+                mesh = None
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.n_data = 1
+        self.n_data = 1 if mesh is None else mesh.size(DATA_AXIS)
+        self.rank = 0
+        if mesh is not None:
+            import torch.distributed as dist
+
+            warmup_collectives(mesh)
+            self.rank = dist.get_rank()
         want = self.device
         if any(t.device.type != want.type or (want.index is not None and t.device != want)
                for t in tree_leaves(params)):
@@ -271,9 +323,22 @@ class Trainer:
                 # the frozen-base recipe is LoRA-only (QLoRA)
                 raise ValueError("quantize_frozen requires lora_enable")
             params = self._quantize_frozen(params)
+        self._spec = self._lora_spec = None
+        self._axes: Dict[int, tuple] = {}
+        if mesh is not None:  # after quantizing: w_q splits as its float weight would
+            self._spec = tdc_param_spec(params, fsdp_size=self.n_data)
+            params = shard_tree(params, self._spec, mesh)
+            if self.lora is not None:
+                self._lora_spec = lora_spec(self.lora, self.n_data)
+                self.lora = shard_tree(self.lora, self._lora_spec, mesh)
         self.params = params
-        self.tx, self.mask = (build_optimizer(params, tcfg, total_steps) if self.lora is None
-                              else self._lora_optimizer(total_steps))
+        split = None
+        if mesh is not None:
+            for _, t, spec in self._named():
+                self._axes[id(t)] = tuple(a for a in spec if a is not None and mesh.size(a) > 1)
+            split = lambda t: self._axes[id(t)]  # noqa: E731
+        self.tx, self.mask = (build_optimizer(params, tcfg, total_steps, mesh, split)
+                              if self.lora is None else self._lora_optimizer(total_steps, split))
         self._view = train_view(params)
         self._lora_split = None if self.lora is None else split_lora(self.lora)
         self.step = 0
@@ -299,7 +364,7 @@ class Trainer:
 
     # -- LoRA: optimize (lora, non-LM trainables) -------------------------------
 
-    def _lora_optimizer(self, total_steps: int):
+    def _lora_optimizer(self, total_steps: int, split_axes=None):
         """AdamW over {lora, extra}: the adapters, and the leaves of the non-LM
         modules the freeze flags leave trainable (unfreeze_mm_compressor=False
         keeps the compressor frozen here too); labels "wd"/"nd" by _no_decay
@@ -323,7 +388,7 @@ class Trainer:
         sched = make_schedule(tcfg, total_steps, tcfg.learning_rate)
         groups = {"wd": (members["wd"], tcfg.weight_decay, sched),
                   "nd": (members["nd"], 0.0, sched)}
-        return GroupedAdamW(groups, tcfg.grad_clip), mask
+        return GroupedAdamW(groups, tcfg.grad_clip, mesh=self.mesh, split_axes=split_axes), mask
 
     # -- the step ---------------------------------------------------------------
 
@@ -341,7 +406,7 @@ class Trainer:
         return tdc_loss(
             self.cfg, params, batch, max_len=self.tcfg.model_max_length,
             max_visual_len=self.tcfg.max_visual_len, attn_impl=attn_impl, remat=True,
-            loss_chunk=self.tcfg.loss_chunk,
+            loss_chunk=self.tcfg.loss_chunk, mesh=self.mesh,
         )
 
     def _pad_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -364,6 +429,31 @@ class Trainer:
             out[k] = np.concatenate([np.asarray(v), pad], axis=0)
         return out
 
+    def _share(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's contiguous share of a padded batch's samples (JAX's
+        batch_spec: every leaf's leading axis split over `data`)."""
+        if self.n_data == 1:
+            return batch
+        b = batch["input_ids"].shape[0] // self.n_data
+        d = self.mesh.coords[DATA_AXIS]
+        return {k: v[d * b:(d + 1) * b] for k, v in batch.items()}
+
+    def _sync_grads(self) -> None:
+        """Over a mesh, once an optimizer step: every trainable leaf's
+        gradient made the whole gradient of the rank's shard, the same on
+        every rank that holds the shard (module docstring)."""
+        lora = {id(t) for ab in (self.lora or {}).values() for t in ab.values()}
+        mesh = self.mesh
+        with torch.no_grad():  # each a no-op over an axis of one rank
+            for t in self.tx.params:
+                axes = self._axes[id(t)]
+                if DATA_AXIS not in axes:
+                    mesh.all_reduce(t.grad, DATA_AXIS)
+                if id(t) in lora:
+                    mesh.all_reduce(t.grad, MODEL_AXIS)
+                elif MODEL_AXIS not in axes:
+                    mesh.broadcast(t.grad, MODEL_AXIS, 0)
+
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Pixels ship in the compute dtype (the towers cast on arrival)."""
         out = {}
@@ -378,14 +468,18 @@ class Trainer:
         """One micro-step: forward and backward, and an optimizer update on
         every gradient_accumulation_steps-th call since the optimizer was
         made.  Returns the loss as a device tensor: reading it (float())
-        waits for the device, so `fit` reads it only every logging_steps."""
-        b = self._to_device(self._pad_batch(batch))
+        waits for the device, so `fit` reads it only every logging_steps.
+        Over a mesh every rank passes the same whole batch and gets the
+        whole batch's loss."""
+        b = self._to_device(self._share(self._pad_batch(batch)))
         loss = self._loss_fn(b)
         k = max(1, self.tcfg.gradient_accumulation_steps)
         (loss / k).backward()
         self.step += 1
         self._micro += 1
         if self._micro == k:
+            if self.mesh is not None:
+                self._sync_grads()
             self.tx.step()
             self._micro = 0
         return loss.detach()
@@ -393,6 +487,9 @@ class Trainer:
     # -- logging ------------------------------------------------------------------
 
     def log(self, metrics: Dict[str, float]):
+        """Rank 0 alone writes (every rank holds the same numbers)."""
+        if self.rank != 0:
+            return
         metrics = {"step": self.step, "time": time.time(), **metrics}
         if self.tcfg.report_to == "tensorboard":
             if self._tb is None:
@@ -435,13 +532,30 @@ class Trainer:
         return sorted(int(d) for d in os.listdir(root)
                       if d.isdigit() and os.path.exists(os.path.join(root, d, CKPT_FILE)))
 
-    def _state(self) -> Dict[str, torch.Tensor]:
-        """The checkpointed leaves by name: "params/<path>", "lora/<key>/a|b"."""
-        out = {"params/" + "/".join(path): t for path, t in tree_leaves_with_path(self.params)}
+    def _named(self):
+        """[(name, leaf, spec)] of the checkpointed leaves: "params/<path>",
+        "lora/<key>/a|b"; spec () without a mesh."""
+        out = [("params/" + "/".join(path), t, _spec_at(self._spec, path))
+               for path, t in tree_leaves_with_path(self.params)]
         for key, ab in (self.lora or {}).items():
             for n, t in ab.items():
-                out[f"lora/{key}/{n}"] = t
+                spec = () if self._lora_spec is None else self._lora_spec[key][n]
+                out.append((f"lora/{key}/{n}", t, spec))
         return out
+
+    def _state(self) -> Dict[str, torch.Tensor]:
+        """The checkpointed leaves by name (this rank's shards)."""
+        return {name: t for name, t, _ in self._named()}
+
+    def _whole(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The whole leaf of which t is this rank's shard (a gather over each
+        axis it is split over: collective, every rank calls it); t itself
+        without a mesh."""
+        with torch.no_grad():
+            for dim, axis in enumerate(spec):
+                if axis is not None and self.mesh.size(axis) > 1:
+                    t = self.mesh.all_gather(t, axis, dim)
+        return t
 
     def save(self, wait: bool = True):
         """Checkpoint {"params", "step", "lora"} as
@@ -453,14 +567,26 @@ class Trainer:
         a thread, through a temporary directory renamed into place; the next
         save, restore or close waits for it.  tune_mm_mlp_adapter also
         writes <output_dir>/mm_projector-<step>.safetensors.  Orbax
-        directories (the JAX package's) are not read or written."""
+        directories (the JAX package's) are not read or written.  Over a
+        mesh every rank calls it: the leaves are gathered whole and rank 0
+        writes them (the one-process layout)."""
         from ..convert.to_hf import export_mm_adapter, save_safetensors
 
         self._join_write()
-        saved = self._saved_steps()
-        if saved and saved[-1] >= self.step:
+        saved = self._saved_steps() if self.rank == 0 else []
+        skip = bool(saved) and saved[-1] >= self.step
+        if self.mesh is not None:  # rank 0's view of the directory decides for all
+            flag = torch.tensor([int(skip)], device=self.device)
+            skip = bool(self.mesh.all_reduce(flag, None, op="max").item())
+        if skip:
             return
-        state = {k: _to_host(t) for k, t in self._state().items()}
+        state = {}  # gathered leaf by leaf over a mesh; rank 0 keeps the host copies
+        for name, t, spec in self._named():
+            whole = self._whole(t, spec)
+            if self.rank == 0:
+                state[name] = _to_host(whole)
+        if self.rank != 0:
+            return
         state["step"] = np.asarray(self.step, np.int64)
         adapter = export_mm_adapter(self.params) if self.tcfg.tune_mm_mlp_adapter else None
         root, step, keep = self._ckpt_root(), self.step, max(1, self.tcfg.save_total_limit)
@@ -495,7 +621,9 @@ class Trainer:
         """Resume from the newest checkpoint under <output_dir>/checkpoints:
         every leaf copied in place (same names, shapes and dtypes, or
         ValueError), and the step.  The optimizer state is not restored (JAX
-        saves none)."""
+        saves none).  Over a mesh each rank reads the whole checkpoint and
+        copies in its shard of every leaf (parallel/sharding.local_slice), so
+        a checkpoint from any mesh, or from one device, restores on any."""
         from ..convert.from_hf import BF16, read_safetensors
 
         self._join_write()
@@ -504,17 +632,20 @@ class Trainer:
             return False
         path = os.path.join(self._ckpt_root(), str(saved[-1]), CKPT_FILE)
         sd = read_safetensors(path)
-        state = self._state()
-        if set(sd) != set(state) | {"step"}:
+        named = self._named()
+        names = {name for name, _, _ in named}
+        if set(sd) != names | {"step"}:
             raise ValueError(f"{path}: leaves differ from this trainer's: "
-                             f"{sorted(set(sd) ^ (set(state) | {'step'}))[:8]}")
+                             f"{sorted(set(sd) ^ (names | {'step'}))[:8]}")
         with torch.no_grad():
-            for name, t in state.items():
+            for name, t, spec in named:
                 a = sd[name]
                 bf16 = a.dtype == BF16
                 src = torch.from_numpy(np.array(a.view(np.int16) if bf16 else a))
                 if bf16:
                     src = src.view(torch.bfloat16)
+                if self.mesh is not None:
+                    src = local_slice(src, spec, self.mesh.coords, self.mesh.shape)
                 if src.dtype != t.dtype or tuple(src.shape) != tuple(t.shape):
                     raise ValueError(f"{path}: {name} is {src.dtype} {tuple(src.shape)}, "
                                      f"the trainer's {t.dtype} {tuple(t.shape)}")
@@ -527,21 +658,41 @@ class Trainer:
         (the reference's merge_lora_weights.py).  Under quantize_frozen the
         int8 leaves are dequantized to cfg.param_dtype first, the base the
         adapters were trained against.  New tensors wherever a leaf changes;
-        the trainer's tree is left as it is."""
-        if self.lora is None:
-            return self.params
+        the trainer's tree is left as it is.  Over a mesh every rank calls
+        it: the leaves are gathered whole, and rank 0 gets the tree (the
+        other ranks None)."""
+        params, lora = self.params, self.lora
+        if self.mesh is not None:
+            params = self._gathered(params, self._spec)
+            lora = None if lora is None else self._gathered(lora, self._lora_spec)
+            if self.rank != 0:
+                return None
+        if lora is None:
+            return params
         from ..models.quant import dequantize_tree_int8
 
-        out = dict(self.params)
+        out = dict(params)
         alpha, rank = self.tcfg.lora_alpha, self.tcfg.lora_r
         if self.tcfg.quantize_frozen is None:
-            out["lm"] = lora_lib.merge_lora_params(out["lm"], self.lora, alpha, rank)
+            out["lm"] = lora_lib.merge_lora_params(out["lm"], lora, alpha, rank)
             return out
         with torch.no_grad():
             out = {k: dequantize_tree_int8(v, dtype=self.cfg.param_dtype) for k, v in out.items()}
         # the dequantized weights are this export's own: merge into them
-        out["lm"] = lora_lib.apply_lora_(out["lm"], self.lora, alpha, rank)
+        out["lm"] = lora_lib.apply_lora_(out["lm"], lora, alpha, rank)
         return out
+
+    def _gathered(self, tree, spec):
+        """The whole tree on rank 0 (None elsewhere), gathered leaf by leaf."""
+        if isinstance(tree, dict):
+            out = {k: self._gathered(v, spec[k]) for k, v in tree.items()}
+        elif isinstance(tree, (list, tuple)):
+            out = type(tree)(self._gathered(v, sp) for v, sp in zip(tree, spec))
+        elif isinstance(tree, torch.Tensor):
+            out = self._whole(tree, spec)
+        else:
+            out = tree
+        return out if self.rank == 0 else None
 
     # -- loop -------------------------------------------------------------------
 
@@ -593,6 +744,14 @@ class Trainer:
                 except queue.Empty:
                     worker.join(timeout=0.1)
         self.save()
+
+
+def _spec_at(spec, path) -> tuple:
+    """The spec entry of the leaf at `path` (tree_leaves_with_path's names)
+    in a parallel/sharding spec tree; () without one."""
+    for name in path if spec is not None else ():
+        spec = spec[name] if isinstance(spec, dict) else spec[int(name)]
+    return () if spec is None else spec
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:

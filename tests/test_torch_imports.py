@@ -80,10 +80,16 @@ def test_smoke_script_fails_without_cuda():
 def test_train_modules_import_and_trainer_needs_cuda():
     """The training slice's modules import without JAX (covered above) and
     the Trainer, an entry point, raises without CUDA unless given the CPU;
-    the stage-3 preset (LoRA) builds on the CPU, and only a device mesh and
-    multi-process runs raise NotImplementedError."""
+    the stage-3 preset (LoRA) builds on the CPU; a mesh of one rank is the
+    one-process trainer, a larger mesh connects its groups first (a mesh
+    without a process group raises there), and the multi-process flags of
+    train.run join a group only when all three are given (the mesh runs
+    themselves: tests/test_torch_parallel_train.py, test_torch_train_run_mp.py)."""
+    import torch.distributed as dist
+
     from tdc_video_tpu_torch.data import preprocess  # noqa: F401
     from tdc_video_tpu_torch.train import stages, step, trainer  # noqa: F401
+    from torch_parity import StandInMesh
 
     assert set(stages.STAGES) == {1, 2, 3}
     if torch.cuda.is_available():
@@ -97,13 +103,17 @@ def test_train_modules_import_and_trainer_needs_cuda():
     tr = trainer.Trainer(tdc_tiny(), stages.stage3_audio_lora(), params, total_steps=1,
                          device="cpu")
     assert tr.lora and tr.lora["layers/q_proj/w"]["a"].shape[-1] == 128
-    with pytest.raises(NotImplementedError, match="mesh"):
-        trainer.Trainer(tdc_tiny(), trainer.TrainConfig(), params, total_steps=1, mesh=object(),
-                        device="cpu")
+    one = trainer.Trainer(tdc_tiny(), trainer.TrainConfig(), params, total_steps=1,
+                          mesh=StandInMesh())
+    assert one.mesh is None and one.n_data == 1 and one.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no process group"):
+        trainer.Trainer(tdc_tiny(), trainer.TrainConfig(), params, total_steps=1,
+                        mesh=StandInMesh(n_data=2), device="cpu")
     from tdc_video_tpu_torch.train import run
 
     for flag in (["--coordinator", "localhost:1234"], ["--num_processes", "2"],
                  ["--process_id", "0"]):
-        with pytest.raises(NotImplementedError, match="multi-process"):
+        with pytest.raises(ValueError, match="coordinator"):
             run.main(["--model_path", "m", "--data_path", "d", "--output_dir", "o",
                       "--device", "cpu", *flag])
+    assert not dist.is_initialized()

@@ -10,8 +10,8 @@ against the JAX package's, in this process and with no process group
   shard_tree keeps the int8 weights column-major;
 * the raises that come before any collective: a dim an axis does not
   divide, a model axis that does not divide the heads, a layer axis split
-  over `data`, a mesh without a process group; warmup_collectives is a
-  no-op with one rank.
+  over a `data` axis of another size, a mesh without a process group;
+  warmup_collectives is a no-op with one rank.
 """
 
 import itertools
@@ -166,17 +166,29 @@ def test_tp_raises_where_the_model_axis_does_not_divide_the_lm():
 
 
 def test_lm_raises_on_a_layer_axis_split_over_data(trees):
+    """A layer axis split over `data` (FSDP) runs, each layer broadcast over
+    `data` from its holder (the numbers: tests/test_torch_parallel_train.py,
+    on gloo ranks): fsdp_layers finds the split, the prefill reaches the
+    first layer's broadcast (the stand-in mesh, which has no process group,
+    raises there), and a split the mesh's data axis does not account for
+    raises ValueError."""
     tp, _ = trees["float"]
     cfg = tc.tdc_tiny()
     mesh = StandInMesh(n_data=2)
     lm = tsharding.shard_tree(tp["lm"], tsharding.lm_param_spec(tp["lm"], fsdp_size=2), mesh)
     assert lm["layers"]["q_proj"]["w"].shape[0] == cfg.lm.num_layers // 2
+    assert tlm.fsdp_layers(cfg.lm, lm["layers"], mesh) == cfg.lm.num_layers // 2
+    assert tlm.fsdp_layers(cfg.lm, tp["lm"]["layers"], mesh) == 0
     ids = torch.ones((1, 4), dtype=torch.int64)
     emb = tlm.embed_tokens(cfg.lm, lm, ids, cfg.dtype, mesh)
     cache = tlm.init_kv_cache(cfg.lm, 1, 4, cfg.dtype, "cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="FSDP"):
+    with pytest.raises(RuntimeError, match="no process group"):
         tlm.prefill(cfg.lm, lm, emb, torch.ones((1, 4), dtype=torch.bool), cache,
                     dtype=cfg.dtype, mesh=mesh)
+    for wrong in (StandInMesh(n_data=1), StandInMesh(n_data=4)):
+        with pytest.raises(ValueError, match="layer axis split"):
+            tlm.prefill(cfg.lm, lm, emb, torch.ones((1, 4), dtype=torch.bool), cache,
+                        dtype=cfg.dtype, mesh=wrong)
 
 
 def test_make_mesh_needs_a_process_group():

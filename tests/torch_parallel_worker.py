@@ -21,6 +21,13 @@ Modes:
   round  world 3: the predictor on 3x1 (the frame bucket rounded up)
   eval   world 2: run_benchmark data-parallel over the ranks
          (--crash_after K: this rank dies after K answers)
+  train  world 2: training over 1x2 and 2x1 meshes: the collectives with
+         gradients, tdc_loss's value and gathered gradients, Trainer full
+         fine-tuning (the clip biting), stage-3 LoRA with audio, QLoRA,
+         a padded batch, checkpoints both ways, export_merged, and
+         encode_frames(remat=True) over `data`
+  train22 world 4: tdc_loss, stage-3 LoRA with audio and QLoRA on 2x2
+  run    world 2: train.run.main with the coordinator flags
 
 Not a test file (no test_ prefix): pytest does not collect it.
 """
@@ -344,7 +351,218 @@ def run_eval(torch, inp, workdir, crash_after=-1):
             "world": torch.distributed.get_world_size()}
 
 
-MODES = {"tp": run_tp, "tp22": run_tp22, "round": run_round, "eval": run_eval}
+# ---------------------------------------------------------------------------
+# Training over a mesh (tests/test_torch_parallel_train.py, test_torch_train_run_mp.py)
+# ---------------------------------------------------------------------------
+
+
+def clone_tree(tree):
+    """A copy of a param tree (each Trainer takes its tree over)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def whole_state(tr):
+    """The trainer's checkpointed leaves by name, whole (collective: every
+    rank calls it; only rank 0's is kept)."""
+    out = {name: tr._whole(t, spec).detach().clone() for name, t, spec in tr._named()}
+    return out if tr.rank == 0 else None
+
+
+def train_run(cfg, params, batches, mesh, tkw, total, lora=None):
+    """A Trainer over `mesh` on `batches` (one micro-step each): the losses,
+    the clip's norms, and the whole state after (rank 0)."""
+    from tdc_video_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tr = Trainer(cfg, TrainConfig(**tkw), clone_tree(params), total_steps=total, mesh=mesh,
+                 lora=clone_tree(lora))
+    losses, norms = [], []
+    for b in batches:
+        losses.append(tr.train_step(b).item())
+        if tr._micro == 0:
+            norms.append(float(tr.tx.norm))
+    return {"losses": losses, "norms": norms, "state": whole_state(tr),
+            "lm_local_layers": tr.params["lm"]["layers"]["input_norm"]["scale"].shape[0],
+            "q_cols": tr.params["lm"]["layers"]["q_proj"][
+                "w_q" if "w_q" in tr.params["lm"]["layers"]["q_proj"] else "w"].shape[-1]}
+
+
+def loss_and_grads(cfg, params, batch, mesh, tkw):
+    """tdc_loss of the whole batch over `mesh` (every leaf trainable) and
+    every gradient after the trainer's sync, gathered whole (rank 0)."""
+    from tdc_video_tpu_torch.parallel import autograd
+    from tdc_video_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tr = Trainer(cfg, TrainConfig(**tkw), clone_tree(params), total_steps=1, mesh=mesh)
+    autograd.reset_counts()
+    loss = tr._loss_fn(tr._to_device(tr._share(tr._pad_batch(batch))))
+    loss.backward()
+    tr._sync_grads()
+    grads = {name: tr._whole(t.grad, spec) for name, t, spec in tr._named()}
+    return {"loss": loss.item(), "grads": grads if tr.rank == 0 else None,
+            "counts": dict(autograd.counts)}
+
+
+def collectives_check(torch, mesh):
+    """Each Function of parallel/autograd against its one-process meaning,
+    on data made from the rank's coordinates: (forward, gradients) pairs."""
+    from tdc_video_tpu_torch.parallel import autograd as ag
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    axis = MODEL_AXIS if mesh.size(MODEL_AXIS) > 1 else DATA_AXIS
+    n, c = mesh.size(axis), mesh.coords[axis]
+    g = torch.Generator().manual_seed(7)
+    xs = [torch.randn(3, 4, generator=g) for _ in range(n)]  # rank r's input is xs[r]
+    w = torch.randn(3, 4, generator=g)  # the loss's weights, the same on every rank
+    out = {}
+    # copy_to: y = x (whole on every rank); each rank's loss part (y * w * (c+1)).sum();
+    # the gradient of x is the sum of every part's: w * sum(r+1)
+    x = xs[0].clone().requires_grad_()
+    (ag.copy_to(x, mesh, axis) * w * (c + 1)).sum().backward()
+    out["copy_to"] = (x.grad, w * sum(r + 1 for r in range(n)))
+    # reduce_from: forward the sum of xs; backward the gradient as it is
+    x = xs[c].clone().requires_grad_()
+    y = ag.reduce_from(x, mesh, axis)
+    (y * w).sum().backward()
+    out["reduce_from"] = (torch.stack([y.detach(), x.grad]), torch.stack([sum(xs), w]))
+    # gather_from: forward the concatenation; backward this rank's rows of w_all
+    w_all = torch.randn(3 * n, 4, generator=g)
+    x = xs[c].clone().requires_grad_()
+    y = ag.gather_from(x, mesh, axis)
+    (y * w_all).sum().backward()
+    out["gather_from"] = (torch.cat([y.detach(), x.grad]),
+                          torch.cat([torch.cat(xs), w_all[3 * c:3 * (c + 1)]]))
+    # broadcast_from: rank n-1's x on every rank; its gradient the sum of
+    # every rank's (y * w * (r+1)), none elsewhere
+    src = n - 1
+    x = (xs[c] if c == src else torch.zeros(3, 4)).clone().requires_grad_()
+    y = ag.broadcast_from(x, mesh, axis, src)
+    (y * w * (c + 1)).sum().backward()
+    want = w * sum(r + 1 for r in range(n)) if c == src else torch.zeros(3, 4)
+    got = x.grad if x.grad is not None else torch.zeros(3, 4)
+    out["broadcast_from"] = (torch.stack([y.detach(), got]), torch.stack([xs[src], want]))
+    return out
+
+
+def encode_grads(torch, cfg, params, sig, dino, w, mesh):
+    """encode_frames(remat=True) over `mesh`'s data axis: the features and
+    the SVA's gradients of (features * w).sum(), summed over `data`."""
+    from tdc_video_tpu_torch.model import encode_frames
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS
+    from tdc_video_tpu_torch.train.step import tree_leaves_with_path
+
+    p = clone_tree(params)
+    sva = tree_leaves_with_path(p["sva"])
+    for _, t in sva:
+        t.requires_grad_()
+    ff, _ = encode_frames(cfg, p, sig, dino, remat=True, mesh=mesh)
+    (ff * w).sum().backward()
+    grads = {"/".join(k): mesh.all_reduce(t.grad.contiguous(), DATA_AXIS) for k, t in sva}
+    return {"feats": ff.detach(), "sva_grads": grads}
+
+
+def run_train(torch, inp, workdir):
+    import dataclasses
+
+    from tdc_video_tpu_torch.config import tdc_tiny
+    from tdc_video_tpu_torch.parallel.mesh import init_distributed, make_mesh, warmup_collectives
+    from tdc_video_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    init_distributed(device="cpu", timeout_s=120)
+    cfg, cfga = _tiny(torch), dataclasses.replace(tdc_tiny(audio=True),
+                                                  compress_dtype=torch.float32)
+    res = {}
+    meshes = {"1x2": make_mesh(1, 2, device="cpu", num_kv_heads=cfg.lm.num_kv_heads),
+              "2x1": make_mesh(2, 1, device="cpu")}
+    for tag, mesh in meshes.items():
+        warmup_collectives(mesh)
+        res[f"collectives/{tag}"] = collectives_check(torch, mesh)
+        res[f"grads/{tag}"] = loss_and_grads(cfg, inp["tdc"], inp["batch"], mesh, inp["grads_kw"])
+        res[f"full/{tag}"] = train_run(cfg, inp["tdc"], inp["full_batches"], mesh,
+                                       inp["full_kw"], inp["full_total"])
+    m12, m21 = meshes["1x2"], meshes["2x1"]
+    res["lora/1x2"] = train_run(cfga, inp["tdc_audio"], inp["audio_batches"], m12,
+                                inp["lora_kw"], inp["lora_total"])
+    res["qlora/1x2"] = train_run(cfg, inp["tdc"], inp["full_batches"][:2], m12, inp["qlora_kw"],
+                                 inp["lora_total"])
+    res["pad/2x1"] = train_run(cfg, inp["tdc"], inp["pad_batches"], m21, inp["pad_kw"],
+                               inp["full_total"])
+    # a one-process checkpoint restored over 2x1, one more step, saved for
+    # the one-process trainer to restore; export_merged gathered to rank 0
+    tr = Trainer(cfg, TrainConfig(**inp["ckpt_kw"]), clone_tree(inp["tdc"]),
+                 total_steps=inp["lora_total"], mesh=m21)
+    res["ckpt/restored"] = tr.restore_if_available()
+    res["ckpt/restored_state"] = whole_state(tr)
+    merged = tr.export_merged()
+    res["ckpt/export"] = merged
+    tr.train_step(inp["full_batches"][0])
+    tr.tcfg = dataclasses.replace(tr.tcfg, output_dir=inp["ckpt_out"])
+    tr.save()
+    res["ckpt/saved_state"] = whole_state(tr)
+    res["encode/2x1"] = encode_grads(torch, cfg, inp["tdc"], inp["sig"], inp["dino"],
+                                     inp["feat_w"], m21)
+    return res
+
+
+def run_train22(torch, inp, workdir):
+    import dataclasses
+
+    from tdc_video_tpu_torch.config import tdc_tiny
+    from tdc_video_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(device="cpu", timeout_s=120)
+    cfg, cfga = _tiny(torch), dataclasses.replace(tdc_tiny(audio=True),
+                                                  compress_dtype=torch.float32)
+    mesh = make_mesh(2, 2, device="cpu", num_kv_heads=cfg.lm.num_kv_heads)
+    return {"grads/2x2": loss_and_grads(cfg, inp["tdc"], inp["batch"], mesh, inp["grads_kw"]),
+            "lora/2x2": train_run(cfga, inp["tdc_audio"], inp["audio_batches"], mesh,
+                                  inp["lora_kw"], inp["lora_total"]),
+            "qlora/2x2": train_run(cfg, inp["tdc"], inp["full_batches"][:2], mesh,
+                                   inp["qlora_kw"], inp["lora_total"])}
+
+
+def run_run(torch, inp, workdir):
+    """train.run.main --coordinator/--num_processes/--process_id over the
+    ranks (the group made by the CLI itself, on the CPU)."""
+    import contextlib
+    import io
+
+    from tdc_video_tpu_torch.train import run
+    from torch_stub_tokenizer import StubTokenizer
+
+    for (mod, name), fn in train_patches().items():
+        setattr(mod, name, fn)
+    argv = inp["argv"] + ["--coordinator", inp["coordinator"], "--num_processes",
+                          os.environ["WORLD_SIZE"], "--process_id", os.environ["RANK"]]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tr = run.main(argv, tokenizer=StubTokenizer())
+    return {"n_data": tr.n_data, "step": tr.step, "mesh": dict(tr.mesh.shape),
+            "stdout": buf.getvalue()}
+
+
+def train_patches():
+    """{(module, name): replacement}: the port's read_config giving f32
+    compute and an f32 compressor, as tests/test_torch_train_run.py runs
+    the CLI (in bf16 a random tiny model's losses part by rounding)."""
+    import dataclasses
+
+    import torch
+
+    from tdc_video_tpu_torch import builder
+
+    real = builder.read_config
+    return {(builder, "read_config"): lambda path: dataclasses.replace(
+        real(path), dtype=torch.float32, compress_dtype=torch.float32)}
+
+
+MODES = {"tp": run_tp, "tp22": run_tp22, "round": run_round, "eval": run_eval,
+         "train": run_train, "train22": run_train22, "run": run_run}
 
 
 def main():
