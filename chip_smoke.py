@@ -21,7 +21,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    8192), its o held row by row (each query's o) at both shapes; K5 and K6
    are held row by row (each query's dQ, each key's dK and dV) at the
    stage-2 LM shape and both tower shapes, and timed as a pair against the
-   SDPA backward;
+   SDPA backward; K1, K5 and K6 at a causal query offset, at the second
+   rank's block of a 2-way sequence split of the stage-2 LM (q [1, 4096,
+   24, 128] over kv [1, 8192, 8, 128], q_offset 4096), held as above to
+   their plain versions at the offset, K1's o and lse also against rows
+   4096-8191 of a whole-sequence call (bit for bit expected), K6's dK and
+   dV at the first rank's block exact zeros on keys no query sees, each
+   timed beside SDPA with a lower-right causal bias (K1 also at the first
+   rank's block);
 3. the serving path: TDC-Llama3.2-3B at full width and depth with random
    weights from a seed, answering one question about 16 synthetic 360x640
    frames through TDCPredictor.answer, with the kernels' launch counters set
@@ -211,7 +218,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    peak memory; (b) frames over a 2x1 mesh (8 frames a rank, gathered):
    the features within 1e-2 (max abs over max abs) of phase 3's
    one-process encode, K2 40 and K3 27 per rank, each timed on rank 0 at 8
-   frames; (c) run_benchmark over phase 13's MVBench tree, data-parallel
+   frames; (e) sequence parallelism over the 2x1 mesh: lm_forward(seq_axis=
+   "data") at full width and depth, T = 8192 seeded ids, attn_impl="flash":
+   each rank's block of logits against the same rows of one process's
+   lm_forward (run on each rank alone, in turn) by (a)'s rule (the last
+   row's argmax kept, max abs within 0.25, a row whose argmax parts on a
+   top-2 gap within twice its difference), K1 28 a rank and 56 K/V gathers
+   exactly, each rank's wall beside one process's; (c) run_benchmark over
+   phase 13's MVBench tree, data-parallel
    over the two ranks (one predictor each): phase 13's one-at-a-time
    records (equal: each rank computes what phase 13 computed), K1 28 a
    question, rank 0 alone writing results, no log left; (d) a one-rank NCCL
@@ -219,9 +233,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1x1 mesh answering phase 3's tokens exactly.  The walls are printed; one
    card shares its SMs between the ranks and gloo moves every collective
    through the host, so they show no multi-GPU speed.  Every kernel's entry
-   gets rank 0's launches in (a)-(d) (`launches_tp`, `launches_dp`,
-   `launches_eval_dp`, `launches_nccl`); K1 at (a)'s shape and K2, K3 at 8
-   frames get entries of their own.
+   gets rank 0's launches in (a)-(e) (`launches_tp`, `launches_dp`,
+   `launches_eval_dp`, `launches_nccl`, `launches_sp`); K1 at (a)'s shape
+   and K2, K3 at 8 frames get entries of their own.
 15. training over a mesh, run right after phase 11 (phase 9's model freed):
    two ranks, child processes of the smoke (`chip_smoke.py --train-rank`,
    RANK and WORLD_SIZE set, killed at a wall limit) on cuda:0 in a gloo
@@ -254,9 +268,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    gradient sums a micro-step printed; (d) a one-rank NCCL group in the
    smoke's own process: one micro-step of Trainer(mesh=1x1) on phase 11
    (e)'s cut model, its loss and every gradient bitwise those of
-   Trainer(mesh=None).  Every kernel's entry gets rank 0's launches in
-   (a)-(d) (`launches_train_tp`, `launches_train_fsdp`, `launches_train_cli`
-   over the CLI's 2 micro-steps, `launches_train_nccl`).
+   Trainer(mesh=None); (e) sequence parallelism over the 2x1 mesh: (b)'s LM
+   alone (f32 weights from the seed, bf16 compute), T = 8192 seeded ids,
+   the shifted cross-entropy and its gradients through lm_forward(seq_axis=
+   "data") without remat: the loss within LOSS_ATOL of one process's (rank
+   0, alone), the gradients summed over `data` at cosine >= GRAD_COS_MIN
+   over all and each layer's q/k/v/o, K1, K5 and K6 once a layer and 8 K/V
+   gathers and their gradient sums exactly, and K6's dK and dV exact zeros
+   on the keys past a rank's queries.  Every kernel's entry gets rank 0's
+   launches in (a)-(e) (`launches_train_tp`, `launches_train_fsdp`,
+   `launches_train_cli` over the CLI's 2 micro-steps, `launches_train_nccl`,
+   `launches_train_sp`).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.  Needs CUDA: exits non-zero without.
@@ -705,6 +727,113 @@ def phase_train_kernels():
     log("kernels " + json.dumps({r["name"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                                  for r in rows.values()}))
     return list(rows.values())
+
+
+# the sequence-parallel legs (phases 14 and 15): stage 2's model_max_length
+# over a data axis of MESH_RANKS (2)
+SP_T = TRAIN_T
+
+
+def _nonzero_past(t, key: int) -> int:
+    """Elements of t [B, S, H, D] that are not zero at keys >= key."""
+    return int(torch.count_nonzero(t[:, key:]))
+
+
+def offset_kernel_rows():
+    """K1, K5 and K6 at a causal query offset, at the second rank's block of
+    a 2-way split of the stage-2 LM (q [1, 4096, 24, 128] over kv [1, 8192,
+    8, 128], q_offset 4096): each held to its plain version at the offset
+    (K1's o and the backward row by row, K1's lse within 1e-3), K1's o and
+    lse compared bit for bit with rows 4096-8191 of a K1 call over the whole
+    sequence, K6's dK and dV at the first rank's block (q_offset 0) exact
+    zeros on the keys past its queries, into outputs whose memory held NaN;
+    each timed beside its plain version and SDPA with a lower-right causal
+    bias (the backward: its forward and backward less its forward), K1 also
+    at the first rank's block.  Returns the three entries of the kernels
+    line."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+
+    rnd = _rnd_fn(SEED + 14)
+    B, S, Hq, Hkv, D = 1, SP_T, 24, 8, 128
+    T = off = SP_T // MESH_RANKS
+    scale = 1.0 / math.sqrt(D)
+    q_all, k, v, do_all = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D), rnd(B, S, Hq, D)
+    q, do = q_all[:, off:].contiguous(), do_all[:, off:].contiguous()
+    label = f"SP 2x1 rank 1 block, q [{B}, {T}, {Hq}, {D}], kv [{B}, {S}, {Hkv}, {D}], q_offset {off}"
+    o, lse = fa.flash_kernel(q, k, v, scale, True, q_offset=off)
+    o_r, lse_r = fa.flash_attention_plain(q, k, v, scale, True, off)
+    o_all, lse_all = fa.flash_kernel(q_all, k, v, scale, True)
+    torch.cuda.synchronize()
+    _compare(f"flash_kernel {label} lse", lse, lse_r, 1e-3, 1e-3)
+    k1_err = _compare_rows(f"flash_kernel {label}", o, o_r, ROW_RTOL)
+    bitwise = torch.equal(o, o_all[:, off:]) and torch.equal(lse, lse_all[:, :, off:])
+    whole_diff = max(float((o.float() - o_all[:, off:].float()).abs().max()),
+                     float((lse - lse_all[:, :, off:]).abs().max()))
+    log(f"[2] flash_kernel {label}: o and lse against rows {off}-{S - 1} of the whole-sequence "
+        f"call: bitwise equal {bitwise} (max abs {whole_diff:.3e})")
+    del o_r, lse_r, o_all, lse_all
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
+    args = (q, k, v, do, lse, delta)
+    dq = fa.flash_dq_kernel(*args, scale, True, q_offset=off)
+    dk, dv = fa.flash_dkv_kernel(*args, scale, True, q_offset=off)
+    dq_r = fa.flash_dq_plain(*args, scale, True, off)
+    dk_r, dv_r = fa.flash_dkv_plain(*args, scale, True, off)
+    torch.cuda.synchronize()
+    err = {"flash_dq_kernel": _compare_rows(f"flash_dq_kernel dQ {label}", dq, dq_r, ROW_RTOL),
+           "flash_dkv_kernel": max(_compare_rows(f"flash_dkv_kernel dK {label}", dk, dk_r, ROW_RTOL),
+                                   _compare_rows(f"flash_dkv_kernel dV {label}", dv, dv_r, ROW_RTOL))}
+    del dq, dk, dv, dq_r, dk_r, dv_r
+    # the first rank's block: keys past its last query (4095) meet none
+    q0, do0 = q_all[:, :off].contiguous(), do_all[:, :off].contiguous()
+    o0, lse0 = fa.flash_kernel(q0, k, v, scale, True)
+    delta0 = (do0.float() * o0.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
+    poison = [torch.full_like(k, float("nan")) for _ in range(4)]
+    del poison
+    dk0, dv0 = fa.flash_dkv_kernel(q0, k, v, do0, lse0, delta0, scale, True, q_offset=0)
+    torch.cuda.synchronize()
+    unseen = _nonzero_past(dk0, off) + _nonzero_past(dv0, off)
+    finite0 = bool(torch.isfinite(dk0).all() and torch.isfinite(dv0).all())
+    log(f"[2] flash_dkv_kernel rank 0 block (q_offset 0): {unseen} non-zero dK/dV elements on "
+        f"keys {off}-{S - 1}, finite {finite0}")
+    if unseen or not finite0:
+        raise AssertionError("flash_dkv_kernel wrote keys that no query sees")
+
+    pairs = T * off + T * (T + 1) // 2
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    bias = causal_lower_right(T, S)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, scale=scale,
+                                                  enable_gqa=True)
+    fwd_lib = time_ms(sdpa)
+    bwd_lib = time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do.transpose(1, 2))) - fwd_lib
+    qkv_bytes = 2.0 * (B * T * Hq * D + 2 * B * S * Hkv * D)
+    rows = [_row("flash_kernel", f"{label} (yardstick: SDPA, causal_lower_right)",
+                 "tdc_video_tpu/ops/flash_attention.py:38", k1_err,
+                 time_ms(lambda: fa.flash_kernel(q, k, v, scale, True, q_offset=off)),
+                 time_ms(lambda: fa.flash_attention_plain(q, k, v, scale, True, off), reps=3, rounds=3),
+                 fwd_lib, 4.0 * B * Hq * pairs * D,
+                 qkv_bytes + 2.0 * B * T * Hq * D + 4.0 * B * Hq * T)]
+    rows[0].update(bitwise_vs_whole=bitwise, whole_max_abs_diff=whole_diff,
+                   rank0_ms=time_ms(lambda: fa.flash_kernel(q0, k, v, scale, True)),
+                   rank0_bound_ms=bound_ms(4.0 * B * Hq * T * (T + 1) // 2 * D, 0)[0])
+    io = qkv_bytes + 2.0 * B * T * Hq * D + 8.0 * B * Hq * T  # + dO, lse, delta
+    for name, mult, out_bytes in (("flash_dq_kernel", 6, 2.0 * B * T * Hq * D),
+                                  ("flash_dkv_kernel", 8, 4.0 * B * S * Hkv * D)):
+        fn, plain = getattr(fa, name), getattr(fa, name.replace("_kernel", "_plain"))
+        rows.append(_row(
+            name, f"{label} (yardstick: SDPA causal_lower_right backward, dQ+dK+dV)",
+            "tdc_video_tpu/ops/flash_attention.py:" + ("433" if name == "flash_dq_kernel" else "489"),
+            err[name], time_ms(lambda: fn(*args, scale, True, q_offset=off)),
+            time_ms(lambda: plain(*args, scale, True, off), reps=2, rounds=3, warmup=1),
+            bwd_lib, mult * pairs * D * B * Hq, io + out_bytes))
+    for r in rows:
+        r["q_offset"] = off
+    log(f"[2] K1 at the first rank's block {rows[0]['rank0_ms']:.4f} ms, at the second's "
+        f"{rows[0]['ms']:.4f} ms ({T * (T + 1) // 2} against {pairs} key-query pairs a head)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1754,12 +1883,87 @@ def _hold_mesh(tag, cfg, params, got, want, tp_stream, gen):
     return p, gap, diff
 
 
+def _in_turn(fn):
+    """fn() on each rank in turn, alone on the card while the others wait
+    at a barrier; returns this rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            out = fn()
+            torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def sp_ids(vocab: int, seed: int, T: int = SP_T) -> torch.Tensor:
+    """[1, T] token ids from the seed (the SP legs' input, whole on every
+    rank as JAX's global array)."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, vocab, (1, T)))
+
+
+def sp_forward_leg(lm_cfg, lm_params, mesh, dtype, T: int = SP_T):
+    """(e) of phase 14, in a rank: lm_forward(seq_axis="data") of the LM
+    over the mesh's data axis at T tokens, attn_impl="flash", its block of
+    f32 logits held to the same rows of one process's lm_forward (run on
+    each rank in turn, alone): the largest difference, and every row whose
+    argmax parts held to phase 13's near-tie rule (the reference's top-2
+    gap within twice that row's difference).  Each run warm (a first call
+    first); the launches and collectives of the second SP run."""
+    from tdc_video_tpu_torch.models.lm import lm_forward
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.parallel import autograd
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS
+
+    rank, n = mesh.coords[DATA_AXIS], mesh.size(DATA_AXIS)
+    rows = slice(rank * T // n, (rank + 1) * T // n)
+    ids = sp_ids(lm_cfg.vocab_size, SEED + 14, T).to(mesh.device)
+    fwd = lambda **kw: lm_forward(lm_cfg, lm_params, input_ids=ids, attn_impl="flash",  # noqa: E731
+                                  dtype=dtype, **kw)
+    with torch.no_grad():
+        def one_process():
+            fwd()
+            return _wall(lambda: fwd()[:, rows].clone())
+
+        ref, ref_s = _in_turn(one_process)
+        fwd(mesh=mesh, seq_axis=DATA_AXIS)
+        fa.reset_launches()
+        autograd.reset_counts()
+        got, sp_s = _wall(lambda: fwd(mesh=mesh, seq_axis=DATA_AXIS))
+        launches, collectives = dict(fa.launches), dict(autograd.counts)
+        diff_row = (got - ref).abs().amax(-1)[0]
+        top2 = torch.topk(ref[0], 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        parted = (got[0].argmax(-1) != ref[0].argmax(-1)).nonzero()[:, 0]
+        ties = [(int(i), float(gap[i]), float(diff_row[i])) for i in parted]
+    out = {"block": list(got.shape), "rows": [rows.start, rows.stop],
+           "max_abs_diff": float(diff_row.max()), "finite": bool(torch.isfinite(got).all()),
+           "last_argmax": [int(got[0, -1].argmax()), int(ref[0, -1].argmax())],
+           "parted_rows": len(ties), "ties": ties[:8],
+           "ties_ok": all(g <= 2 * d for _, g, d in ties),
+           "wall_s": sp_s, "one_process_wall_s": ref_s, "launches": launches,
+           "collectives": collectives}
+    del got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _rank_main() -> int:
     """One rank of phase 14, run as `chip_smoke.py --mesh-rank <tmp>` with
     torchrun's variables (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a
     gloo group on cuda:0, TDC-Llama3.2-3B at full width and depth from the
-    seed (the weights of phase 3), legs (a)-(c).  Writes rank<r>.json (and
-    rank 0 the tensors the parent compares) into <tmp>."""
+    seed (the weights of phase 3), legs (a), (b), (e) and (c).  Writes
+    rank<r>.json (and rank 0 the tensors the parent compares) into <tmp>."""
     import torch.distributed as dist
 
     from tdc_video_tpu_torch.config import tdc_llama32_3b
@@ -1861,6 +2065,12 @@ def _rank_main() -> int:
                    ("full_attention_nhd_seqq", "tdc_video_tpu/ops/flash_attention.py:242",
                     (share, 729, 729, 16, 16, 72), False)])
     out["dp_leg_s"] = time.perf_counter() - t0
+
+    # (e) sequence parallelism over the same 2x1 mesh: the LM at SP_T tokens
+    t0 = time.perf_counter()
+    out["sp"] = sp_forward_leg(cfg.lm, params["lm"], mesh21, cfg.dtype)
+    out["sp"]["leg_s"] = time.perf_counter() - t0
+    log(f"[14e] rank {rank}: {json.dumps(out['sp'])}")
 
     # (c) evaluation, data-parallel over the ranks: one predictor each
     t0 = time.perf_counter()
@@ -2055,6 +2265,23 @@ def phase_mesh(cfg, params, pred, frames, ids, ids12, records13):
     if got != want or any(r["eval_metrics"] != r0["eval_metrics"] for r in res):
         raise AssertionError(f"[14c] records {got} differ from phase 13's {want}")
 
+    # (e) sequence parallelism: each rank's logits block against one process's rows
+    sp = [r["sp"] for r in res]
+    expected_e = {"flash_kernel": L, "full_attention_nhd": 0, "full_attention_nhd_seqq": 0, **none}
+    _leg(14, "e_sequence_parallel", mesh="2x1", seq_axis="data", tokens=SP_T,
+         block_per_rank=[x["block"] for x in sp], rows_per_rank=[x["rows"] for x in sp],
+         logits_max_abs_diff=[x["max_abs_diff"] for x in sp],
+         last_row_argmax=[x["last_argmax"] for x in sp],
+         parted_rows=[x["parted_rows"] for x in sp], ties=[x["ties"] for x in sp],
+         wall_s=[x["wall_s"] for x in sp], one_process_wall_s=[x["one_process_wall_s"] for x in sp],
+         launches=[x["launches"] for x in sp], launches_expected=expected_e,
+         collectives=[x["collectives"] for x in sp], leg_s=[x["leg_s"] for x in sp])
+    for x in sp:
+        if (x["block"] != [1, SP_T // MESH_RANKS, cfg.lm.vocab_size] or not x["finite"]
+                or not x["max_abs_diff"] <= LOGIT_ATOL or x["last_argmax"][0] != x["last_argmax"][1]
+                or not x["ties_ok"] or x["collectives"].get("gather_seq") != 2 * L):
+            raise AssertionError(f"[14e] sequence-parallel logits or collectives: {x}")
+
     # (d) NCCL, one rank, in this process
     ids_d, counts_d, wall_d = _nccl_leg(cfg, params, frames, ids)
     _leg(14, "d_nccl_one_rank", wall_s=wall_d, launches=counts_d, ids=ids_d)
@@ -2064,6 +2291,7 @@ def phase_mesh(cfg, params, pred, frames, ids, ids12, records13):
     for r in res:
         for name, got_c, want_c in (("a", r["launches_tp"], expected_a),
                                     ("b", r["launches_dp"], expected_b),
+                                    ("e", r["sp"]["launches"], expected_e),
                                     ("c", r["launches_eval_dp"], expected_c[r["rank"]]),):
             if got_c != want_c:
                 raise AssertionError(f"[14{name}] rank {r['rank']} launches {got_c}, "
@@ -2077,7 +2305,7 @@ def phase_mesh(cfg, params, pred, frames, ids, ids12, records13):
     log(f"[14] phase 14 in {time.perf_counter() - t_phase:.1f} s (ranks {ranks_s:.1f} s); "
         f"{card()}")
     return {"tp": r0["launches_tp"], "dp": r0["launches_dp"],
-            "eval_dp": r0["launches_eval_dp"], "nccl": counts_d}, rows
+            "eval_dp": r0["launches_eval_dp"], "nccl": counts_d, "sp": r0["sp"]["launches"]}, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3516,14 +3744,137 @@ class _IOTimer:
             setattr(owner, name, real)
 
 
+def _sp_loss(lm_cfg, params, ids, dtype, mesh=None):
+    """The shifted cross-entropy of ids (every row predicts the next id)
+    through lm_forward, attn_impl="flash": over a mesh (seq_axis="data")
+    this rank's rows' share, whose sum over `data` is the loss."""
+    from tdc_video_tpu_torch.models.lm import lm_forward
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS
+
+    T = ids.shape[1]
+    n, c = (1, 0) if mesh is None else (mesh.size(DATA_AXIS), mesh.coords[DATA_AXIS])
+    logits = lm_forward(lm_cfg, params, input_ids=ids, attn_impl="flash", dtype=dtype,
+                        mesh=mesh, seq_axis=None if mesh is None else DATA_AXIS)
+    target = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)], 1)[:, c * T // n:(c + 1) * T // n]
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.take_along_dim(logp, target.clamp_min(0)[..., None], dim=-1)[..., 0]
+    return -(ll * (target >= 0)).sum() / (T - 1)
+
+
+def _grad_cosines(got, want):
+    """_held_grads' cosines (over all the gradients, and the worst of each
+    layer's q/k/v/o) taken leaf by leaf on the card, without concatenating
+    the leaves (the LM's gradients are ~4.8 GB in f32)."""
+    sums = {}
+    for n, w in want.items():
+        parts = [("all", got[n], w)]
+        m = re.search(r"layers/([qkvo]_proj)/", n)
+        if m:
+            parts += [(f"{m.group(1)}[{i}]", got[n][i], w[i]) for i in range(w.shape[0])]
+        for key, a, b in parts:
+            a, b = a.flatten().float(), b.flatten().float()
+            acc = sums.setdefault(key, [0.0, 0.0, 0.0])
+            acc[0] += float(torch.dot(a, b))
+            acc[1] += float(torch.dot(a, a))
+            acc[2] += float(torch.dot(b, b))
+    cos = {k: d / max(math.sqrt(aa * bb), 1e-300) for k, (d, aa, bb) in sums.items()}
+    worst = min((k for k in cos if k != "all"), key=cos.get)
+    return cos["all"], worst, cos[worst]
+
+
+SP_TRAIN_LAUNCHES = {"flash_kernel": TRAIN_MESH_LAYERS, "full_attention_nhd": 0,
+                     "full_attention_nhd_seqq": 0, "full_attention": 0,
+                     "flash_dq_kernel": TRAIN_MESH_LAYERS, "flash_dkv_kernel": TRAIN_MESH_LAYERS}
+
+
+def sp_train_leg(lm_cfg, mesh, dtype, T: int = SP_T):
+    """(e) of phase 15, in a rank: the LM at full width cut to
+    TRAIN_MESH_LAYERS layers, f32 weights from the seed, its loss and
+    gradients with the sequence over the mesh's data axis (no remat: K1,
+    K5 and K6 once a layer), the gradients summed over `data`; K6's dK and
+    dV counted where no query of this rank's block reaches (they must be
+    exact zeros: each rank's partial is summed), after NaN was left in the
+    allocator's free blocks.  Rank 0 then runs one process's loss and
+    gradients (the other ranks wait) and holds the summed gradients to
+    them (cosine over all and over each layer's q/k/v/o, _grad_cosines)."""
+    import torch.distributed as dist
+
+    from tdc_video_tpu_torch.models.lm import init_lm
+    from tdc_video_tpu_torch.ops import flash_attention as fa
+    from tdc_video_tpu_torch.parallel import autograd
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS
+
+    dev = mesh.device
+    rank, n = mesh.coords[DATA_AXIS], mesh.size(DATA_AXIS)
+    params = init_lm(lm_cfg, torch.Generator(device=dev).manual_seed(SEED), dev, torch.float32)
+    named = dict(_named_leaves(params))
+    for t in named.values():
+        t.requires_grad_()
+    ids = sp_ids(lm_cfg.vocab_size, SEED + 15, T).to(dev)
+    seen_to = (rank + 1) * T // n  # keys at or past it meet no query of this rank
+    unseen, finite, real = [], [], fa.flash_dkv_kernel
+
+    def spy(*a, **k):
+        dk, dv = real(*a, **k)
+        unseen.append(_nonzero_past(dk, seen_to) + _nonzero_past(dv, seen_to))
+        finite.append(bool(torch.isfinite(dk).all() and torch.isfinite(dv).all()))
+        return dk, dv
+
+    fa.flash_dkv_kernel = spy
+    try:
+        shape = (1, T, lm_cfg.num_kv_heads, lm_cfg.head_dim)
+        poison = [torch.full(shape, float("nan"), dtype=dtype, device=dev) for _ in range(8)]
+        del poison
+        torch.cuda.synchronize()
+        dist.barrier()  # both ranks start the timed step together
+        fa.reset_launches()
+        autograd.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            loss = _sp_loss(lm_cfg, params, ids, dtype, mesh)
+            loss.backward()
+            return loss.detach()
+
+        loss, sp_s = _wall(step)
+    finally:
+        fa.flash_dkv_kernel = real
+    out = {"launches": dict(fa.launches), "collectives": dict(autograd.counts), "wall_s": sp_s,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "unseen_nonzero": sum(unseen), "dkv_finite": all(finite), "keys_seen_to": seen_to}
+    # the loss and the gradients summed over the axis
+    with torch.no_grad():
+        out["loss"] = float(mesh.all_reduce(loss, DATA_AXIS))
+        _, out["grad_sum_s"] = _wall(lambda: [mesh.all_reduce(t.grad, DATA_AXIS)
+                                             for t in named.values()])
+    grads = {name: t.grad for name, t in named.items()}
+    for t in named.values():
+        t.grad = None
+
+    def one_process():
+        loss1, wall = _wall(lambda: _sp_loss(lm_cfg, params, ids, dtype))
+        _, bwd = _wall(loss1.backward)
+        held = _grad_cosines(grads, {name: t.grad for name, t in named.items()})
+        return {"loss": float(loss1.detach()), "wall_s": wall + bwd, "cos_all": held[0],
+                "cos_worst_layer": list(held[1:])}
+
+    out["one_process"] = one_process() if rank == 0 else None
+    dist.barrier()
+    del params, named, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _train_rank_main() -> int:
     """One rank of phase 15, run as `chip_smoke.py --train-rank <tmp>` with
     torchrun's RANK and WORLD_SIZE: (c) train.run.main with the coordinator
-    flags (it joins the gloo group on cuda:0), then (a) and (b) over that
-    group.  Writes rank<r>.json (and rank 0 the gathered gradients) into
+    flags (it joins the gloo group on cuda:0), then (a), (b) and (e) over
+    that group.  Writes rank<r>.json (and rank 0 the gathered gradients) into
     <tmp>."""
     import torch.distributed as dist
 
+    from tdc_video_tpu_torch.config import tdc_llama32_3b
     from tdc_video_tpu_torch.ops import flash_attention as fa
     from tdc_video_tpu_torch.parallel.mesh import make_mesh
     from tdc_video_tpu_torch.train import run as train_run
@@ -3590,6 +3941,14 @@ def _train_rank_main() -> int:
         torch.save(leg["grads"], os.path.join(tmp, "b_grads.pt"))
     out["b"]["leg_s"] = time.perf_counter() - t0
     del trainer, leg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) sequence parallelism, forward and backward, over the same 2x1 mesh
+    t0 = time.perf_counter()
+    out["e"] = sp_train_leg(_cut_lm(tdc_llama32_3b()).lm, mesh, torch.bfloat16)
+    out["e"]["leg_s"] = time.perf_counter() - t0
+    log(f"[15e] rank {rank}: {json.dumps(out['e'])}")
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     dist.destroy_process_group()
@@ -3802,6 +4161,28 @@ def phase_mesh_train(cli):
             or any(final_launches[k] <= 0 for k in MAIN_KERNELS)):
         failures.append("(c)")
 
+    # (e) sequence parallelism: the loss and the summed gradients against one process's
+    sp, one = [r["e"] for r in res], r0["e"]["one_process"]
+    L = TRAIN_MESH_LAYERS
+    dl_e = abs(sp[0]["loss"] - one["loss"])
+    _leg(15, "e_sequence_parallel", mesh="2x1", seq_axis="data", tokens=SP_T, lm_layers=L,
+         remat=False, losses=[x["loss"] for x in sp], loss_one_process=one["loss"],
+         loss_max_abs_diff=dl_e, grad_cos_all_lm=one["cos_all"],
+         grad_cos_worst_layer=one["cos_worst_layer"],
+         dkv_nonzero_on_unseen_keys=[x["unseen_nonzero"] for x in sp],
+         keys_seen_to=[x["keys_seen_to"] for x in sp], dkv_finite=[x["dkv_finite"] for x in sp],
+         walls=[x["wall_s"] for x in sp], wall_one_process=one["wall_s"],
+         grad_sum_s=[x["grad_sum_s"] for x in sp], peak_gib_per_rank=[x["peak_gib"] for x in sp],
+         launches=[x["launches"] for x in sp], launches_expected=SP_TRAIN_LAUNCHES,
+         collectives=[x["collectives"] for x in sp], leg_s=[x["leg_s"] for x in sp])
+    if (dl_e > LOSS_ATOL or min(one["cos_all"], one["cos_worst_layer"][1]) < GRAD_COS_MIN
+            or any(x["loss"] != sp[0]["loss"] for x in sp)
+            or any(x["unseen_nonzero"] or not x["dkv_finite"] for x in sp)
+            or any(x["collectives"].get("gather_seq") != 2 * L
+                   or x["collectives"].get("gather_seq_grad") != 2 * L for x in sp)
+            or any(x["launches"] != SP_TRAIN_LAUNCHES for x in sp)):
+        failures.append("(e)")
+
     # (d) one NCCL rank, a 1x1 mesh: the one-process code, bitwise
     equal_d, detail_d, counts_d = _nccl_train_leg(cli)
     _leg(15, "d_nccl_one_rank", bitwise_equal=equal_d, **detail_d, launches=counts_d)
@@ -3819,7 +4200,8 @@ def phase_mesh_train(cli):
     for row in rows:
         row["launches"] = r0["a"]["launches"][-1][row["name"]]
     return {"train_tp": r0["a"]["launches"][-1], "train_fsdp": r0["b"]["launches"][-1],
-            "train_cli": r0["launches_cli"], "train_nccl": counts_d}, rows
+            "train_cli": r0["launches_cli"], "train_nccl": counts_d,
+            "train_sp": r0["e"]["launches"]}, rows
 
 
 def main() -> int:
@@ -3850,6 +4232,7 @@ def main() -> int:
     log(f"[2] main-path prefill shape T={T} S={S}")
     rows = phase_kernels(T, S)
     train_rows = phase_train_kernels()
+    sp_rows = offset_kernel_rows()
     mark("2")
     cfg, params, pred, frames = phase_main_path(rows)
     phase_flash_vs_xla(cfg, params, pred, frames)
@@ -3917,8 +4300,12 @@ def main() -> int:
         shutil.rmtree(keep, ignore_errors=True)
     for r in s3_rows:  # K1, K5, K6 at the stage-3 shape: launches per LoRA micro-step
         r["launches"] = counts11["lora"][r["name"]]
-    kernels = rows + train_rows + [k1_av] + s3_rows + mesh_rows + train_mesh_rows
-    for r in kernels:  # each kernel on phase 11's to 15's legs (phases 14-15: per rank)
+    for r in sp_rows:  # at a rank's block: K1 in phase 14 (e), K5 and K6 in phase 15 (e)
+        r["launches"] = (counts14["sp"] if r["name"] == "flash_kernel"
+                         else counts15["train_sp"])[r["name"]]
+    kernels = rows + train_rows + [k1_av] + s3_rows + mesh_rows + train_mesh_rows + sp_rows
+    for r in kernels:  # each kernel on phase 11's to 15's legs (phases 14-15: per rank; `sp`:
+        # phase 14 (e), `train_sp`: phase 15 (e))
         for leg, c in (list(counts11.items()) + list(counts12.items()) + list(counts13.items())
                        + list(counts14.items()) + list(counts15.items())):
             r[f"launches_{leg}"] = c[r["name"]]

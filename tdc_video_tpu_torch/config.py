@@ -3,12 +3,14 @@
 Field names are the JAX package's; `dtype`, `param_dtype` and
 `compress_dtype` are torch dtypes.  Each preset takes `audio=True` for its
 audio-visual variant (BEATs + audio_proj, 50 audio tokens fused into each
-chunk's static frame).
+chunk's static frame).  `save_config` / `load_config` write and read the
+JAX package's JSON: a dtype is written by its JAX name ("bfloat16").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
@@ -335,6 +337,18 @@ def tdc_llama32_3b(audio: bool = False) -> TDCConfig:
     return cfg.with_audio() if audio else cfg
 
 
+def tdc_qwen2_7b_stage1(audio: bool = False) -> TDCConfig:
+    """Stage-1 image alignment config: 576-token grid
+    (scripts/stage1/train_image_qwen.sh:46-51)."""
+    cfg = TDCConfig(
+        lm=QWEN2_7B,
+        sva=SVA_DEFAULT,
+        qformer=_replace(QFORMER_BASE, encoder_width=QWEN2_7B.hidden_size),
+        conv_version="qwen",
+    )
+    return cfg.with_audio() if audio else cfg
+
+
 def tdc_tiny(audio: bool = False) -> TDCConfig:
     """Tiny end-to-end config for tests: every module, toy sizes."""
     cfg = TDCConfig(
@@ -355,3 +369,55 @@ def tdc_tiny(audio: bool = False) -> TDCConfig:
         dtype=torch.float32,
     )
     return cfg.with_audio() if audio else cfg
+
+
+# a dtype's name in the JAX package's JSON, and back
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32", torch.float16: "float16"}
+_DTYPES = {name: dt for dt, name in _DTYPE_NAMES.items()}
+
+
+def save_config(cfg: TDCConfig, path: str) -> None:
+    """cfg as the JAX package's save_config writes it: every field, nested
+    configs as objects, dtypes by name, tuples as lists."""
+
+    def enc(o):
+        if dataclasses.is_dataclass(o) and not isinstance(o, type):
+            return {k: enc(v) for k, v in dataclasses.asdict(o).items()}
+        if isinstance(o, torch.dtype) and o in _DTYPE_NAMES:
+            return _DTYPE_NAMES[o]
+        return o
+
+    d = {f.name: enc(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+    with open(path, "w") as fh:
+        json.dump(d, fh, indent=2, default=str)
+
+
+def load_config(path: str) -> TDCConfig:
+    """A config written by save_config (the port's or the JAX package's),
+    read as the JAX package's load_config reads it: unknown keys ignored,
+    lists made tuples, and compress_dtype left at its default (JAX does not
+    read it back)."""
+    with open(path) as fh:
+        d = json.load(fh)
+
+    def mk(cls, dd):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in dd.items() if k in names})
+
+    return TDCConfig(
+        lm=mk(LMConfig, d["lm"]),
+        siglip=mk(ViTConfig, d["siglip"]),
+        dino=mk(ViTConfig, d["dino"]),
+        qformer=mk(QFormerConfig, d["qformer"]),
+        beats=mk(BeatsConfig, d["beats"]),
+        sva=mk(SVAConfig, d["sva"]),
+        compression=mk(CompressionConfig, d["compression"]),
+        conv_version=d.get("conv_version", "qwen"),
+        tokenizer_model_max_length=d.get("tokenizer_model_max_length", 8192),
+        inference_max_length=d.get("inference_max_length", 16),
+        video_fps=d.get("video_fps", 1.0),
+        audio_input=d.get("audio_input", False),
+        dtype=_DTYPES.get(str(d.get("dtype", "bfloat16")), torch.bfloat16),
+        param_dtype=_DTYPES.get(str(d.get("param_dtype", "float32")), torch.float32),
+    )

@@ -4,8 +4,9 @@
 // storing them (flash-attention backward):
 //
 //   S = scale * Q K^T              f32 dot of input-dtype operands
-//   P = exp(S - lse)               masked: col < kv_len, and col <= row when
-//                                  CAUSAL (top-left aligned), and row < T
+//   P = exp(S - lse)               masked: col < kv_len, and col <= row +
+//                                  q_offset when CAUSAL (top-left aligned at
+//                                  q_offset = 0), and row < T
 //   dP = dO V^T                    f32
 //   dS = P * (dP - delta)          delta = rowsum(dO * O) in f32, computed by
 //                                  the caller as the JAX package does
@@ -43,6 +44,7 @@ struct BwdParams {
   void* dk;            // [B, S, Hkv, D] (K6)
   void* dv;
   int B, T, S, Hq, Hkv, D, kv_len;
+  int q_offset;  // causal only: query i is row i + q_offset of the sequence
   long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -57,7 +59,7 @@ struct BwdParams {
 inline BwdParams make_bwd_params(const void* q, const void* k, const void* v, const void* dout,
                                  const float* lse, const float* delta, void* dq, void* dk,
                                  void* dv, int B, int T, int S, int Hq, int Hkv, int D,
-                                 int kv_len, const long long* st, float scale) {
+                                 int kv_len, const long long* st, int q_offset, float scale) {
   BwdParams p;
   p.q = q;
   p.k = k;
@@ -75,6 +77,7 @@ inline BwdParams make_bwd_params(const void* q, const void* k, const void* v, co
   p.Hkv = Hkv;
   p.D = D;
   p.kv_len = kv_len;
+  p.q_offset = q_offset;
   long long* dst[21] = {&p.q_sb,  &p.q_st,  &p.q_sh,  &p.k_sb,  &p.k_ss,  &p.k_sh,  &p.v_sb,
                         &p.v_ss,  &p.v_sh,  &p.do_sb, &p.do_st, &p.do_sh, &p.dq_sb, &p.dq_st,
                         &p.dq_sh, &p.dk_sb, &p.dk_ss, &p.dk_sh, &p.dv_sb, &p.dv_ss, &p.dv_sh};
@@ -88,7 +91,8 @@ inline BwdParams make_bwd_params(const void* q, const void* k, const void* v, co
 inline cudaError_t check_bwd(const BwdParams& p, int is_f32) {
   if (p.B <= 0 || p.T <= 0 || p.Hq <= 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.kv_len <= 0 ||
       p.kv_len > p.S || p.B > 65535 || p.Hq > 65535 || p.D <= 0 || p.D > 128 ||
-      p.lse == nullptr || p.delta == nullptr) {
+      p.lse == nullptr || p.delta == nullptr || p.q_offset < 0 ||
+      (p.q_offset > 0 && p.q_offset + p.T > p.S)) {
     return cudaErrorInvalidValue;
   }
   if (is_f32) return cudaSuccess;

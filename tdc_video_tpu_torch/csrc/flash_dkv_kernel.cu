@@ -38,7 +38,11 @@
 // two tiles a warpgroup do not fit, and make ptxas spill and serialize the
 // wgmma); the producer keeps up to three tiles in flight and no
 // __syncthreads() ties the warps to the loads; the mask is evaluated only on
-// tiles that cross the diagonal, T or kv_len. What it leaves: every block
+// tiles that cross the diagonal, T or kv_len. A causal query offset
+// (sequence parallelism) moves the diagonal by q_offset keys: the first
+// query tile a key tile meets is the one that holds query k0 - q_offset, and
+// a key tile past the last query's diagonal meets none and writes zeros, so
+// a rank's partial dK and dV may be summed. What it leaves: every block
 // streams its group's Q and dO tiles (32 KB each at D = 128) from L2 for
 // only 64 keys; a cluster of blocks sharing each tile by TMA multicast would
 // cut that traffic.
@@ -95,7 +99,9 @@ __global__ void __launch_bounds__(k6::NTHR, 1)
   const int b = blockIdx.z, hk = blockIdx.x, k0 = blockIdx.y * KROWS;
   const int group = p.Hq / p.Hkv;
   const int n_qt = (p.T + QROWS - 1) / QROWS;
-  const int i0 = CAUSAL ? min(k0 / QROWS, n_qt) : 0;  // earlier query tiles see no key here
+  // earlier query tiles see no key here (with CAUSAL: query i sees key k0
+  // iff i + q_offset >= k0)
+  const int i0 = CAUSAL ? min(max(k0 - p.q_offset, 0) / QROWS, n_qt) : 0;
   const int n_q = n_qt - i0;
   // iteration it: query head hk * group + it / n_q, query tile n_qt - 1 - it % n_q.
   // The tiles run from the last down to the diagonal, so that the blocks in
@@ -152,7 +158,8 @@ __global__ void __launch_bounds__(k6::NTHR, 1)
       const int h = hk * group + it / n_q, q0 = (n_qt - 1 - it % n_q) * QROWS;
       const uint32_t qt = opaque(sQ + s * TQ), dt = opaque(sD + s * TQ);
       const float* st_row = stat + s * 2 * k6::STAT_SLOT + (((b * p.Hq + h) * p.T + q0) & 3);
-      const bool mask = q0 + QROWS > p.T || k0 + KROWS > p.kv_len || (CAUSAL && q0 < k0 + KROWS - 1);
+      const bool mask = q0 + QROWS > p.T || k0 + KROWS > p.kv_len ||
+                        (CAUSAL && q0 + p.q_offset < k0 + KROWS - 1);
       float x[32];  // S^T, then P^T (warpgroup 0); dP^T, then dS^T (warpgroup 1)
       uint32_t a[4][4];
       mbar_wait(bars + 8 * s, parity);
@@ -172,7 +179,8 @@ __global__ void __launch_bounds__(k6::NTHR, 1)
         for (int i = 0; i < 32; ++i) {
           const int c = c0 + (i / 4) * 8 + (i & 1), key = keys[(i >> 1) & 1];
           float pr = exp2_approx(fmaf(x[i], p.scale, -st_row[c]) * LOG2E);
-          if (mask && !(key < p.kv_len && q0 + c < p.T && (!CAUSAL || key <= q0 + c))) pr = 0.f;
+          if (mask && !(key < p.kv_len && q0 + c < p.T && (!CAUSAL || key <= q0 + c + p.q_offset)))
+            pr = 0.f;
           x[i] = pr;
         }
 #pragma unroll
@@ -262,7 +270,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_f32_kernel(const BwdParams
   const int r_loc = warp * 16 + (lane >> 1), half = lane & 1;
   const int key = k0 + r_loc;
   const int n_qt = (p.T + BM - 1) / BM;
-  const int i0 = CAUSAL ? min(k0 / BM, n_qt) : 0;
+  const int i0 = CAUSAL ? min(max(k0 - p.q_offset, 0) / BM, n_qt) : 0;
   constexpr int HD = DP / 2;
   float dk[HD], dv[HD];
 #pragma unroll
@@ -294,7 +302,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_f32_kernel(const BwdParams
           dp = fmaf(Vs[r_loc * DP + d], Ds[c * DP + d], dp);
         }
         const int row = q0 + c;
-        const bool vis = key < p.kv_len && row < p.T && (!CAUSAL || key <= row);
+        const bool vis = key < p.kv_len && row < p.T && (!CAUSAL || key <= row + p.q_offset);
         const float pr = vis ? expf(s * p.scale - Ls[c]) : 0.f;
         Ps[r_loc * BM + c] = pr;
         Ss[r_loc * BM + c] = pr * (dp - Dl[c]);
@@ -376,10 +384,11 @@ extern "C" int tdc_flash_dkv_kernel_bwd(const void* q, const void* k, const void
                                         const void* dout, const float* lse, const float* delta,
                                         void* dq, void* dk, void* dv, int is_f32, int B, int T,
                                         int S, int Hq, int Hkv, int D, int kv_len,
-                                        const long long* strides, int causal, float scale,
-                                        void* stream) {
+                                        const long long* strides, int causal, int q_offset,
+                                        float scale, void* stream) {
   const tdc::BwdParams p = tdc::make_bwd_params(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S,
-                                                Hq, Hkv, D, kv_len, strides, scale);
+                                                Hq, Hkv, D, kv_len, strides,
+                                                causal ? q_offset : 0, scale);
   cudaError_t e = tdc::check_bwd(p, is_f32);
   if (e == cudaSuccess && (dk == nullptr || dv == nullptr ||
                            (!is_f32 && (reinterpret_cast<uintptr_t>(dk) % 4 != 0 ||

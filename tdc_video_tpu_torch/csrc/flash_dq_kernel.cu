@@ -22,6 +22,8 @@
 //     delta) rounded to bf16 straight into the A registers of dQ += dS K, a
 //     wgmma whose B is the same K tile read MN-major; then each warp hands
 //     the stage back to the producer.
+// A causal query offset (sequence parallelism) moves every row's diagonal
+// by q_offset keys: it enters the tile counts and the mask's select only.
 // What it does about the limits of the mma.sync kernel it replaces: every
 // product is a wgmma (no ldmatrix; only dS passes through registers); 64 f32
 // registers of dQ and 16 each of a half tile's S and dP a thread fit with no
@@ -70,7 +72,7 @@ __global__ void __launch_bounds__(k5::NTHR, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * QROWS;  // the longest causal tiles start first
   const int hk = h / (p.Hq / p.Hkv);
   int n_tiles = (p.kv_len + KROWS - 1) / KROWS;
-  if (CAUSAL) n_tiles = min(n_tiles, min(q0 + QROWS - 1, p.T - 1) / KROWS + 1);
+  if (CAUSAL) n_tiles = min(n_tiles, (min(q0 + QROWS - 1, p.T - 1) + p.q_offset) / KROWS + 1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
@@ -112,8 +114,9 @@ __global__ void __launch_bounds__(k5::NTHR, 1)
       dlt[r] = rows[r] < p.T ? p.delta[i] : 0.f;
     }
     // K/V tiles this warpgroup's rows see (it still releases every stage)
+    const int d_wg = r_wg + (CAUSAL ? p.q_offset : 0);  // its first row's diagonal key
     int n_mine = r_wg < p.T ? n_tiles : 0;
-    if (CAUSAL) n_mine = min(n_mine, (r_wg + 63) / KROWS + 1);
+    if (CAUSAL) n_mine = min(n_mine, (d_wg + 63) / KROWS + 1);
     float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
@@ -127,7 +130,7 @@ __global__ void __launch_bounds__(k5::NTHR, 1)
         const uint32_t qt = opaque(sQ), dt = opaque(sD);
         const int k0 = j * KROWS;
         // masked only where the tile crosses the diagonal, kv_len or T
-        const bool mask = k0 + KROWS > p.kv_len || r_wg + 64 > p.T || (CAUSAL && k0 + KROWS - 1 > r_wg);
+        const bool mask = k0 + KROWS > p.kv_len || r_wg + 64 > p.T || (CAUSAL && k0 + KROWS - 1 > d_wg);
         // two halves of 32 keys: S and dP of a half take 16 registers each
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -149,7 +152,7 @@ __global__ void __launch_bounds__(k5::NTHR, 1)
             const int col = k0 + half * 32 + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
             const int row = rows[(i >> 1) & 1];
             const float pr = exp2_approx(fmaf(sc[i], scale_log2, -lse_log2[(i >> 1) & 1]));
-            sc[i] = mask && !(col < p.kv_len && row < p.T && (!CAUSAL || col <= row)) ? 0.f : pr;
+            sc[i] = mask && !(col < p.kv_len && row < p.T && (!CAUSAL || col <= row + p.q_offset)) ? 0.f : pr;
           }
           wgmma_wait<0>();
           fence_regs(dp);
@@ -227,7 +230,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_f32_kernel(const BwdParams 
   const float lse = row < p.T ? p.lse[li] : 0.f;
   const float dlt = row < p.T ? p.delta[li] : 0.f;
   int n_tiles = (p.kv_len + BN - 1) / BN;
-  if (CAUSAL) n_tiles = min(n_tiles, min(q0 + BM - 1, p.T - 1) / BN + 1);
+  if (CAUSAL) n_tiles = min(n_tiles, (min(q0 + BM - 1, p.T - 1) + p.q_offset) / BN + 1);
   constexpr int HD = DP / 2;
   float acc[HD];
 #pragma unroll
@@ -250,7 +253,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_dq_f32_kernel(const BwdParams 
         dp = fmaf(Ds[r_loc * DP + d], Vs[c * DP + d], dp);
       }
       const int col = k0 + c;
-      const bool vis = col < p.kv_len && row < p.T && (!CAUSAL || col <= row);
+      const bool vis = col < p.kv_len && row < p.T && (!CAUSAL || col <= row + p.q_offset);
       const float pr = vis ? expf(s * p.scale - lse) : 0.f;
       Ss[r_loc * BN + c] = pr * (dp - dlt);
     }
@@ -320,10 +323,11 @@ extern "C" int tdc_flash_dq_kernel_bwd(const void* q, const void* k, const void*
                                        const void* dout, const float* lse, const float* delta,
                                        void* dq, void* dk, void* dv, int is_f32, int B, int T,
                                        int S, int Hq, int Hkv, int D, int kv_len,
-                                       const long long* strides, int causal, float scale,
-                                       void* stream) {
+                                       const long long* strides, int causal, int q_offset,
+                                       float scale, void* stream) {
   const tdc::BwdParams p = tdc::make_bwd_params(q, k, v, dout, lse, delta, dq, dk, dv, B, T, S,
-                                                Hq, Hkv, D, kv_len, strides, scale);
+                                                Hq, Hkv, D, kv_len, strides,
+                                                causal ? q_offset : 0, scale);
   cudaError_t e = tdc::check_bwd(p, is_f32);
   if (e == cudaSuccess && (dq == nullptr || (!is_f32 && reinterpret_cast<uintptr_t>(dq) % 4 != 0)))
     e = cudaErrorInvalidValue;

@@ -9,9 +9,12 @@
 // Semantics (what every TPU kernel it replaces computes):
 //   * scores are f32 dot products of input-dtype operands; the scale
 //     multiplies the f32 score after the dot;
-//   * key j is visible to query i iff j < kv_len and, when CAUSAL, j <= i.
-//     The causal alignment is top-left even when S > T (a prefill into a
-//     longer KV cache), and KV tiles above the diagonal are never read;
+//   * key j is visible to query i iff j < kv_len and, when CAUSAL,
+//     j <= i + q_offset. With q_offset = 0 the causal alignment is top-left
+//     even when S > T (a prefill into a longer KV cache); q_offset > 0 puts
+//     the queries at rows q_offset.. of a longer sequence (a rank's block
+//     under sequence parallelism, q_offset + T <= S). KV tiles above the
+//     diagonal are never read;
 //   * P is rounded to the input dtype before the PV product; the row sum
 //     uses the unrounded f32 P;
 //   * O = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)).
@@ -56,6 +59,7 @@ struct FwdParams {
   void* o;
   float* lse;  // [B, Hq, T] f32, or null
   int B, T, S, Hq, Hkv, D, kv_len;
+  int q_offset;  // causal only: query i is row i + q_offset of the sequence (K1; 0 elsewhere)
   long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -64,11 +68,11 @@ struct FwdParams {
 };
 
 // Number of KV tiles query tile q0 reads: with CAUSAL, up to the tile that
-// holds its last row's diagonal element.
+// holds its last row's diagonal element (key row + q_offset).
 template <bool CAUSAL>
 __device__ __forceinline__ int kv_tiles(const FwdParams& p, int q0) {
   int n = (p.kv_len + BN - 1) / BN;
-  if (CAUSAL) n = min(n, min(q0 + BM - 1, p.T - 1) / BN + 1);
+  if (CAUSAL) n = min(n, (min(q0 + BM - 1, p.T - 1) + p.q_offset) / BN + 1);
   return n;
 }
 
@@ -224,7 +228,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(const FwdParam
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + n * 8 + 2 * t4 + (e & 1);
-        const bool vis = col < p.kv_len && (!CAUSAL || col <= rows[e >> 1]);
+        const bool vis = col < p.kv_len && (!CAUSAL || col <= rows[e >> 1] + p.q_offset);
         s[n][e] = vis ? s[n][e] * p.scale : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
@@ -352,7 +356,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(const FwdParams
       float s = 0.f;
       for (int d = 0; d < DP; ++d) s = fmaf(Qs[r_loc * DP + d], Ks[c * DP + d], s);
       const int col = k0 + c;
-      const bool vis = col < p.kv_len && (!CAUSAL || col <= row_g);
+      const bool vis = col < p.kv_len && (!CAUSAL || col <= row_g + p.q_offset);
       s = vis ? s * p.scale : NEG_INF;
       Ss[r_loc * BN + c] = s;
       mx = fmaxf(mx, s);
@@ -423,7 +427,8 @@ cudaError_t dispatch_f32(const FwdParams& p, cudaStream_t stream) {
 // The checks every forward entry point makes before it launches.
 inline cudaError_t check_fwd(const FwdParams& p, int is_f32) {
   if (p.B <= 0 || p.T <= 0 || p.Hq <= 0 || p.Hkv <= 0 || p.Hq % p.Hkv != 0 || p.kv_len <= 0 ||
-      p.kv_len > p.S || p.B > 65535 || p.Hq > 65535 || p.D <= 0 || p.D > 128) {
+      p.kv_len > p.S || p.B > 65535 || p.Hq > 65535 || p.D <= 0 || p.D > 128 ||
+      p.q_offset < 0 || (p.q_offset > 0 && p.q_offset + p.T > p.S)) {
     return cudaErrorInvalidValue;
   }
   if (is_f32) return cudaSuccess;
@@ -457,6 +462,7 @@ inline FwdParams make_params(const void* q, const void* k, const void* v, void* 
   p.Hkv = Hkv;
   p.D = D;
   p.kv_len = kv_len;
+  p.q_offset = 0;
   p.q_sb = st[0];
   p.q_st = st[1];
   p.q_sh = st[2];

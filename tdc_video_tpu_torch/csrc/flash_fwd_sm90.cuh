@@ -5,7 +5,8 @@
 //
 // It computes what flash_fwd.cuh states (f32 scores of bf16 operands scaled
 // after the dot; key j visible to query i iff j < kv_len and, when CAUSAL,
-// j <= i, top-left aligned even when S > T; P rounded to bf16 before PV and
+// j <= i + q_offset, top-left aligned at q_offset = 0 even when S > T; P
+// rounded to bf16 before PV and
 // summed unrounded; O = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)),
 // written when LSE) over the same strided operands, q [B, T, Hq, D] and k/v
 // [B, S, Hkv, D] read in place through 4-D TMA tensor maps (sm90.cuh
@@ -13,7 +14,8 @@
 //
 // A work item is (query head, NWG * 64 query rows, batch), heads fastest, so
 // that the query heads of a GQA group are neighbouring items and read their
-// KV head's tiles from L2, and the longest causal query tiles first. A block
+// KV head's tiles from L2, and the longest causal query tiles first (a
+// query offset adds the same keys to every tile, so the order stands). A block
 // is NWG consumer warpgroups and a producer:
 //   * one producer thread loads the item's Q rows once and K and V tiles
 //     (KROWS keys) into an NST-stage ring by TMA, completed on mbarriers (a
@@ -23,9 +25,12 @@
 //     softmax in registers (row max and sum over the quad of threads that
 //     share a row, exp2 by ex2.approx with the scale folded into log2(e)); P
 //     rounded to bf16 straight into the A registers of O += P V, a wgmma
-//     whose B is the V tile read MN-major. Only a warpgroup's last tile (the
-//     causal diagonal, or the tile that holds kv_len) is masked; the mask is
-//     a template parameter, so no branch lies between a wgmma and its wait.
+//     whose B is the V tile read MN-major. Only a warpgroup's last tiles are
+//     masked: the one that holds kv_len, and those that cross the causal
+//     diagonal (one, or two where q_offset is not a multiple of the tile).
+//     The mask is a template parameter and the offset enters only the tile
+//     counts and the mask's select, so no branch lies between a wgmma and
+//     its wait.
 //   * Within a warpgroup, S of tile j and P V of tile j - 1 are issued
 //     together and the softmax of tile j runs while P V is in flight; O is
 //     rescaled and P of tile j packed once that product has landed, and the
@@ -114,6 +119,8 @@ struct Consumer {
   static constexpr int NP = KROWS / 16;           // k-steps of P V
   static constexpr uint32_t TK = KROWS * DP * 2;  // K or V tile bytes
   uint32_t sQ, sK, sV, bars;
+  // rows: the diagonal key of this thread's two accumulator rows (the row
+  // plus the causal query offset): the last key each may see
   int g0, wg, lane, r_wg, kv_len, rows[2];
   float scale_log2;
   float o[DP / 2], sc[KROWS / 2];
@@ -237,11 +244,11 @@ __device__ __forceinline__ Item item(const FwdParams& p, int w, int n_qt) {
 }
 
 // K/V tiles of the work item whose first query row is q0: with CAUSAL, up to
-// the tile that holds its last row's diagonal element.
+// the tile that holds its last row's diagonal element (key row + q_offset).
 template <bool CAUSAL, class C>
 __device__ __forceinline__ int item_tiles(const FwdParams& p, int q0) {
   int n = (p.kv_len + C::KROWS - 1) / C::KROWS;
-  if (CAUSAL) n = min(n, min(q0 + C::QROWS - 1, p.T - 1) / C::KROWS + 1);
+  if (CAUSAL) n = min(n, (min(q0 + C::QROWS - 1, p.T - 1) + p.q_offset) / C::KROWS + 1);
   return n;
 }
 }  // namespace fwd90
@@ -313,14 +320,16 @@ __global__ void __launch_bounds__(C::NTHR, 1)
   c.lane = t % 32;
   c.kv_len = p.kv_len;
   c.scale_log2 = p.scale * LOG2E;
+  const int qoff = CAUSAL ? p.q_offset : 0;
   for (int w = w0, it = 0; w < n_items; w += dw, ++it) {
     const fwd90::Item x = fwd90::item<C>(p, w, n_qt);
     const int n_tiles = fwd90::item_tiles<CAUSAL, C>(p, x.q0);
     const int qs = it % NQB;
     c.sQ = sQ + qs * TQ;
     c.r_wg = x.q0 + c.wg * 64;  // this warpgroup's first query row
-    // accumulator rows of this thread (sm90.cuh: the wgmma layout)
-    c.rows[0] = c.r_wg + warp * 16 + c.lane / 4;
+    const int d_wg = c.r_wg + qoff;  // its diagonal key
+    // diagonals of this thread's accumulator rows (sm90.cuh: the wgmma layout)
+    c.rows[0] = d_wg + warp * 16 + c.lane / 4;
     c.rows[1] = c.rows[0] + 8;
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) c.o[i] = 0.f;
@@ -328,20 +337,21 @@ __global__ void __launch_bounds__(C::NTHR, 1)
     c.l_r[0] = c.l_r[1] = 0.f;
 
     // K/V tiles this warpgroup's rows see (it still hands back every stage):
-    // with CAUSAL, up to the tile of its last row's diagonal, which also
-    // holds its first row's (r_wg is a multiple of 64, tiles are 64 or 128
-    // keys). Only the last of them can need the mask: the diagonal or kv_len.
+    // with CAUSAL, up to the tile of its last row's diagonal. The masked
+    // ones are a suffix: the tile that holds kv_len, and with CAUSAL those
+    // whose last key passes the first row's diagonal d_wg (r_wg is a
+    // multiple of 64: one tile, or two when q_offset is not a multiple of
+    // KROWS).
     int n_mine = c.r_wg < p.T ? n_tiles : 0;
-    if (CAUSAL) n_mine = min(n_mine, (c.r_wg + 63) / KROWS + 1);
-    const int k_last = (n_mine - 1) * KROWS;
-    const bool mask_last = k_last + KROWS > p.kv_len || (CAUSAL && k_last + KROWS - 1 > c.r_wg);
+    if (CAUSAL) n_mine = min(n_mine, (d_wg + 63) / KROWS + 1);
+    int n_plain = n_mine * KROWS > p.kv_len ? n_mine - 1 : n_mine;
+    if (CAUSAL) n_plain = min(n_plain, (d_wg + 1) / KROWS);
     mbar_wait(qfull + 8 * qs, (it / NQB) & 1);
     if (n_mine > 0) {
-      if (n_mine == 1 && mask_last) c.template first<true>();
+      if (n_plain == 0) c.template first<true>();
       else c.template first<false>();
-      const int n_plain = mask_last ? n_mine - 1 : n_mine;
       for (int j = 1; j < n_plain; ++j) c.template step<false>(j);
-      if (mask_last && n_mine > 1) c.template step<true>(n_mine - 1);
+      for (int j = max(n_plain, 1); j < n_mine; ++j) c.template step<true>(j);
       c.last(n_mine - 1);
     }
     for (int j = n_mine; j < n_tiles; ++j) {  // tiles past this warpgroup's diagonal
@@ -361,8 +371,9 @@ __global__ void __launch_bounds__(C::NTHR, 1)
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       l = fmaxf(l, 1e-30f);
-      if (c.rows[r] >= p.T) continue;
-      bf16* orow = og + (long long)c.rows[r] * p.o_st;
+      const int row = c.rows[r] - qoff;
+      if (row >= p.T) continue;
+      bf16* orow = og + (long long)row * p.o_st;
 #pragma unroll
       for (int n = 0; n < DP / 8; ++n) {
         const int col = n * 8 + 2 * (c.lane % 4);
@@ -371,7 +382,7 @@ __global__ void __launch_bounds__(C::NTHR, 1)
               pack_bf16(c.o[4 * n + 2 * r] / l, c.o[4 * n + 2 * r + 1] / l);
       }
       if (LSE && c.lane % 4 == 0)
-        p.lse[((long long)x.b * p.Hq + x.h) * p.T + c.rows[r]] = c.m_r[r] * p.scale + logf(l);
+        p.lse[((long long)x.b * p.Hq + x.h) * p.T + row] = c.m_r[r] * p.scale + logf(l);
     }
   }
 }

@@ -28,15 +28,25 @@
 // heads at T = 1416) is about 2.2 waves of 132 SMs, longest causal tiles
 // first. bf16 D <= 32 keeps the mma.sync body (flash_fwd.cuh); f32 the scalar
 // one.
+//
+// Causal query offset (sequence parallelism: a rank's block of T queries at
+// rows q_offset.. of a sequence of S keys): key j is visible to query i iff
+// j <= i + q_offset. The offset enters only the tile counts and the mask's
+// select; a tile-aligned offset gives the rows of a call over the whole
+// sequence bit for bit. At the stage-2 LM's 2-way split, the second rank's
+// block (T = 4096 at q_offset = 4096 over S = 8192) is T q_offset + T (T +
+// 1) / 2 = 2.5e7 key-query pairs a head, 3x the first rank's: 3.1e11 FLOP,
+// 0.313 ms at the bf16 peak.
 #include "flash_fwd_sm90.cuh"
 
 extern "C" int tdc_flash_kernel_fwd(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int is_f32, int B, int T, int S, int Hq,
                                     int Hkv, int D, int kv_len, const long long* strides,
-                                    int causal, float scale, void* stream) {
+                                    int causal, int q_offset, float scale, void* stream) {
   if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);  // K1 always writes it
-  const tdc::FwdParams p =
+  tdc::FwdParams p =
       tdc::make_params(q, k, v, o, lse, B, T, S, Hq, Hkv, D, kv_len, strides, scale);
+  p.q_offset = causal ? q_offset : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = causal ? tdc::dispatch_sm90<true, true>(p, is_f32, st)
                                : tdc::dispatch_sm90<false, true>(p, is_f32, st);

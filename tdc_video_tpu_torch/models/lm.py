@@ -38,6 +38,15 @@ reduce_from after the row-parallel ones and the embedding), a stacked
 layer axis split over `data` (FSDP: each layer broadcast from its holder
 inside its checkpoint), and lm_loss vocabulary-parallel over `model` and
 one mean over the whole batch over `data`.
+
+Sequence parallelism (`lm_forward(seq_axis="data")`, JAX's GSPMD sequence
+sharding): each rank of `data` runs a contiguous block of T/n rows through
+every layer; after RoPE each layer gathers the block's keys and values
+over the axis (parallel/autograd.gather_seq, whose backward sums every
+rank's partial gradient), and the block's queries attend the whole
+sequence at a causal query offset of coord * T/n (ops/flash_attention.py
+on the card, the causal mask's row block on sdpa).  It combines with TP
+over `model` and with FSDP's layers over `data`.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LMConfig
 from ..device import resolve_device
-from ..parallel.autograd import broadcast_from, copy_to, reduce_from
+from ..parallel.autograd import broadcast_from, copy_to, gather_from, gather_seq, reduce_from
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .attention import attention
 from .layers import (
@@ -191,11 +200,15 @@ def _layer_forward(
     verify: bool = False,
     mesh=None,
     fsdp_src: Optional[int] = None,
+    seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """One decoder layer.  fsdp_src: the `data` coordinate of the rank that
     holds this layer (FSDP): `p` is that rank's layer there and a stand-in
     of the same structure elsewhere, and the layer is broadcast from it here,
-    inside the layer's checkpoint, so that remat broadcasts it again."""
+    inside the layer's checkpoint, so that remat broadcasts it again.
+    seq_axis: x is this rank's block of the sequence over that axis (the
+    rows from coord * T on): the keys and values are gathered over it and
+    the queries attend them at that causal offset."""
     if fsdp_src is not None:
         p = _map_leaves(lambda t: broadcast_from(t, mesh, DATA_AXIS, fsdp_src), p)
     B, T, _ = x.shape
@@ -211,6 +224,10 @@ def _layer_forward(
     q = apply_rope(q.reshape(B, T, -1, cfg.head_dim), cos, sin)
     k = apply_rope(k.reshape(B, T, -1, cfg.head_dim), cos, sin)
     v = v.reshape(B, T, -1, cfg.head_dim)
+    q_offset = 0
+    if seq_axis is not None:
+        k, v = gather_seq(k, mesh, seq_axis, 1), gather_seq(v, mesh, seq_axis, 1)
+        q_offset = mesh.coords[seq_axis] * T
     b_idx = None if cache_k is None else torch.arange(B, device=x.device)[:, None]
     if isinstance(cache_k, tuple):
         # int8 cache: quantize at write; never a dequantized cache
@@ -236,7 +253,7 @@ def _layer_forward(
             cache_v[b_idx, write_pos] = v.to(cache_v.dtype)
             k, v = cache_k, cache_v
         attn = attention(q, k.to(q.dtype), v.to(q.dtype), attn_mask, impl=attn_impl,
-                         causal=causal)
+                         causal=causal, q_offset=q_offset)
     x = x + row_parallel_linear(p["o_proj"], attn.reshape(B, T, -1), mesh, act_quant=act_quant)
     h2 = rms_norm(p["post_attn_norm"], x, cfg.rms_norm_eps)
     return x + swiglu_mlp(p["mlp"], h2, act_quant=act_quant, mesh=mesh)
@@ -257,6 +274,7 @@ def lm_backbone(
     act_quant: bool = False,
     verify: bool = False,
     mesh=None,
+    seq_axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Run the decoder stack; returns (final hidden [B,T,H], cache).
     remat=True (training) checkpoints each layer: the backward keeps only the
@@ -268,7 +286,9 @@ def lm_backbone(
     stacked axis split over a `data` axis of n, parallel/sharding.py): the
     rank at data coordinate d holds layers [d L/n, (d+1) L/n), and each
     layer is broadcast from its holder inside its (checkpointed) layer
-    function."""
+    function.  seq_axis: inputs_embeds, positions and attn_mask's rows are
+    this rank's block of the sequence over that axis of `mesh`
+    (lm_forward)."""
     x = inputs_embeds.to(dtype)
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=x.device)
     cos, sin = rope_cos_sin(positions, inv_freq)
@@ -291,7 +311,7 @@ def lm_backbone(
         elif cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
         x = layer_fn(lp, x, cos, sin, attn_mask, ck, cv, write_pos, attn_impl, causal, act_quant,
-                     verify, mesh, src)
+                     verify, mesh, src, seq_axis)
     return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
 
 
@@ -368,11 +388,13 @@ def lm_head(cfg: LMConfig, params: Params, hidden: torch.Tensor, head=None,
     """f32 logits [B, T, V] (layers.dot_f32).  `head`: head_weight's pair,
     when the caller casts the weight once for many calls (lm_loss).  Under
     TP each rank's logits over its vocabulary slice, gathered over `model`
-    in rank order: every rank gets the full logits."""
-    y = _local_logits(cfg, params, hidden, head)
+    in rank order: every rank gets the full logits (differentiable: the
+    hidden states enter through copy_to, the slices leave through
+    gather_from)."""
     if tp_size(cfg, mesh) == 1:
-        return y
-    return mesh.all_gather(y, MODEL_AXIS, dim=-1)
+        return _local_logits(cfg, params, hidden, head)
+    y = _local_logits(cfg, params, copy_to(hidden, mesh, MODEL_AXIS), head)
+    return gather_from(y, mesh, MODEL_AXIS, dim=-1)
 
 
 def _local_logits(cfg: LMConfig, params: Params, hidden, head=None) -> torch.Tensor:
@@ -402,25 +424,45 @@ def lm_forward(
     return_hidden: bool = False,
     act_quant: bool = False,
     mesh=None,
+    seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Full-sequence causal forward (training / scoring): f32 logits [B,T,V],
     or the final hidden states when return_hidden (the chunked loss applies
     the head itself).  act_quant=True runs int8 weights' projections s8 x s8.
     mesh: TP and FSDP as lm_backbone (the logits gathered over `model`).
-    JAX's seq_axis (sequence sharding) is not ported (ROADMAP.md)."""
+
+    seq_axis="data": sequence parallelism over the mesh's `data` axis of n
+    (module docstring).  Every rank passes the whole [B, T] ids (or
+    embeddings) and mask, JAX's global array; positions come from the whole
+    mask, and the rank at coordinate c runs rows [c T/n, (c+1) T/n) and
+    returns their logits (or hidden states) [B, T/n, ...]: the block JAX's
+    sharded result holds on that device (the whole f32 logits are 4.2 GB at
+    T=8192).  Differentiable: the gradient of each rank's block reaches
+    every parameter, and their sum over `data` is the whole gradient.  T
+    must divide by n, and `data` is the only axis taken (ValueError
+    otherwise)."""
+    if seq_axis is not None and seq_axis != DATA_AXIS:
+        raise ValueError(f"seq_axis {seq_axis!r}: the sequence splits over {DATA_AXIS!r} only")
+    B, T = (input_ids if inputs_embeds is None else inputs_embeds).shape[:2]
+    n = 1 if seq_axis is None or mesh is None else mesh.size(seq_axis)
+    if T % n:
+        raise ValueError(f"sequence length {T} does not divide over the {seq_axis!r} axis of {n}")
+    rows = slice(0, T) if n == 1 else slice(mesh.coords[seq_axis] * (T // n),
+                                            (mesh.coords[seq_axis] + 1) * (T // n))
     if inputs_embeds is None:
-        inputs_embeds = embed_tokens(cfg, params, input_ids, dtype, mesh)
-    B, T, _ = inputs_embeds.shape
+        inputs_embeds = embed_tokens(cfg, params, input_ids[:, rows], dtype, mesh)
+    else:
+        inputs_embeds = inputs_embeds[:, rows]
     dev = inputs_embeds.device
     if attention_mask is None:
         attention_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
     if positions is None:
         positions = (torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1).clamp_min(0)
-    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[rows]
     mask = causal[None, None] & attention_mask.to(torch.bool)[:, None, None, :]
-    hidden, _ = lm_backbone(cfg, params, inputs_embeds, positions, mask, attn_impl=attn_impl,
-                            dtype=dtype, causal=True, remat=remat, act_quant=act_quant,
-                            mesh=mesh)
+    hidden, _ = lm_backbone(cfg, params, inputs_embeds, positions[:, rows], mask,
+                            attn_impl=attn_impl, dtype=dtype, causal=True, remat=remat,
+                            act_quant=act_quant, mesh=mesh, seq_axis=None if n == 1 else seq_axis)
     if return_hidden:
         return hidden
     return lm_head(cfg, params, hidden, mesh=mesh)

@@ -39,13 +39,16 @@ SM90 = {"flash_kernel": "flash_fwd_bf16_sm90_kernel",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, lse (or None), is_f32, B, T, S, Hq, Hkv, D, kv_len, 12 strides
-# (q, k, v, o), causal, scale, stream
+# (q, k, v, o), causal, scale, stream; K1 takes its causal query offset
+# after causal
 FWD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                 ctypes.POINTER(ctypes.c_int64), _I, ctypes.c_float, _P]
+K1_ARGTYPES = FWD_ARGTYPES[:15] + [_I] + FWD_ARGTYPES[15:]
 # q, k, v, dO, lse, delta, dQ, dK, dV (unused ones None), is_f32, B, T, S, Hq,
-# Hkv, D, kv_len, 21 strides (q, k, v, dO, dQ, dK, dV), causal, scale, stream
+# Hkv, D, kv_len, 21 strides (q, k, v, dO, dQ, dK, dV), causal, q_offset,
+# scale, stream
 BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                ctypes.POINTER(ctypes.c_int64), _I, ctypes.c_float, _P]
+                ctypes.POINTER(ctypes.c_int64), _I, _I, ctypes.c_float, _P]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -117,7 +120,8 @@ def load(name: str) -> ctypes.CDLL:
         paths, _, _ = build_all((name,))
         lib = ctypes.CDLL(str(paths[name]))
         fn = getattr(lib, entry_point(name))
-        fn.argtypes = BWD_ARGTYPES if name in BACKWARD else FWD_ARGTYPES
+        fn.argtypes = (BWD_ARGTYPES if name in BACKWARD
+                       else K1_ARGTYPES if name == "flash_kernel" else FWD_ARGTYPES)
         fn.restype = ctypes.c_int
         lib.tdc_error_string.argtypes = [ctypes.c_int]
         lib.tdc_error_string.restype = ctypes.c_char_p

@@ -24,6 +24,13 @@ strides `operand_strides` passes.  Each wrapper takes its plain PyTorch version 
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
 `launches` counts kernel launches.
 
+K1, K5 and K6 take a causal query offset (sequence parallelism, models/lm.py
+`lm_forward(seq_axis=)`): key j is visible to query i iff j < kv_len and
+(not causal or j <= i + q_offset), so a rank's block of T queries at rows
+q_offset.. attends every earlier key of the whole sequence of S keys.  The
+JAX package has no such argument (GSPMD slices its masked call); q_offset=0
+is every call of the JAX dispatch, top-left aligned when S > T.
+
 Gradients follow the JAX custom VJPs: `_FlashCore` (K1 or K4 forward with
 the lse; backward delta, K5, K6) mirrors `_flash_core`, and `_FlashFullNHD`
 (K2 or K3 forward; backward recomputes o and lse with K4, then K5 and K6)
@@ -90,11 +97,29 @@ def select_kernel(T: int, S: int, Hq: int, Hkv: int, D: int, causal: bool) -> st
 # ---------------------------------------------------------------------------
 
 
-def _attention_plain(q, k, v, scale: float, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def _visible(T: int, S: int, q_offset: int, device) -> torch.Tensor:
+    """[T, S] bool: key j visible to query i under the causal mask, j <= i +
+    q_offset."""
+    return (torch.arange(S, device=device)[None, :]
+            <= torch.arange(T, device=device)[:, None] + q_offset)
+
+
+def _check_offset(T: int, S: int, q_offset: int) -> None:
+    """The causal query offset's range, checked before any launch: a
+    negative offset, or a positive one that puts the block past the keys
+    (q_offset + T > S), raises ValueError.  q_offset=0 is any call."""
+    if q_offset < 0 or (q_offset > 0 and q_offset + T > S):
+        raise ValueError(f"causal query offset {q_offset} out of range for T={T} queries "
+                         f"over S={S} keys (0 <= q_offset, q_offset + T <= S)")
+
+
+def _attention_plain(q, k, v, scale: float, causal: bool,
+                     q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B,T,Hq,D], k/v [B,S,Hkv,D] -> (o [B,T,Hq,D], lse [B,Hq,T,1] f32).
-    Key j is visible to query i iff j < S and (not causal or j <= i): causal
-    is top-left aligned even when S > T.  f32 scores scaled after the dot, P
-    rounded to the input dtype before PV, o = acc / max(l, 1e-30)."""
+    Key j is visible to query i iff j < S and (not causal or j <= i +
+    q_offset): at q_offset=0 causal is top-left aligned even when S > T.
+    f32 scores scaled after the dot, P rounded to the input dtype before PV,
+    o = acc / max(l, 1e-30)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -103,7 +128,7 @@ def _attention_plain(q, k, v, scale: float, causal: bool) -> Tuple[torch.Tensor,
     vh = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
     s = scale * (qh @ kh.transpose(-1, -2))  # b h t s
     if causal:
-        vis = torch.arange(S, device=q.device)[None, :] <= torch.arange(T, device=q.device)[:, None]
+        vis = _visible(T, S, q_offset, q.device)
         s = torch.where(vis, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -115,9 +140,9 @@ def _attention_plain(q, k, v, scale: float, causal: bool) -> Tuple[torch.Tensor,
     return o.to(q.dtype).permute(0, 2, 1, 3), lse
 
 
-def flash_attention_plain(q, k, v, scale: float, causal: bool = True):
+def flash_attention_plain(q, k, v, scale: float, causal: bool = True, q_offset: int = 0):
     """Plain version of K1: returns (o [B,T,Hq,D], lse [B,Hq,T,1] f32)."""
-    return _attention_plain(q, k, v, scale, causal)
+    return _attention_plain(q, k, v, scale, causal, q_offset)
 
 
 def full_attention_nhd_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -135,7 +160,7 @@ def full_attention_plain(q, k, v, scale: float):
     return _attention_plain(q, k, v, scale, False)
 
 
-def _bwd_terms(q, k, v, do, lse, delta, scale: float, causal: bool):
+def _bwd_terms(q, k, v, do, lse, delta, scale: float, causal: bool, q_offset: int = 0):
     """Per KV head hk: (query-head slice, q, k, dO of the group as [B,g,T,D]
     or [B,1,S,D], P and dS [B,g,T,S] f32), the recomputed terms of
     _flash_gqa_bwd: P = exp(scale Q K^T - lse) masked, dS = P (dO V^T - delta).
@@ -143,9 +168,7 @@ def _bwd_terms(q, k, v, do, lse, delta, scale: float, causal: bool):
     T, Hq = q.shape[1], q.shape[2]
     S, Hkv = k.shape[1], k.shape[2]
     g = Hq // Hkv
-    vis = None
-    if causal:
-        vis = torch.arange(S, device=q.device)[None, :] <= torch.arange(T, device=q.device)[:, None]
+    vis = _visible(T, S, q_offset, q.device) if causal else None
     for hk in range(Hkv):
         hs = slice(hk * g, (hk + 1) * g)
         qh = q[:, :, hs].permute(0, 2, 1, 3)
@@ -159,22 +182,24 @@ def _bwd_terms(q, k, v, do, lse, delta, scale: float, causal: bool):
         yield hk, hs, qh, kh, doh, p, ds
 
 
-def flash_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool) -> torch.Tensor:
+def flash_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool,
+                   q_offset: int = 0) -> torch.Tensor:
     """Plain version of K5: dQ = scale * dS(input dtype) K, [B,T,Hq,D].
     lse and delta are [B,Hq,T,1] f32."""
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    for _, hs, _, kh, _, _, ds in _bwd_terms(q, k, v, do, lse, delta, scale, causal):
+    for _, hs, _, kh, _, _, ds in _bwd_terms(q, k, v, do, lse, delta, scale, causal, q_offset):
         dq[:, :, hs] = (scale * (ds.to(q.dtype).float() @ kh.float())).to(q.dtype).permute(0, 2, 1, 3)
     return dq
 
 
-def flash_dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
+def flash_dkv_plain(q, k, v, do, lse, delta, scale: float, causal: bool, q_offset: int = 0):
     """Plain version of K6: (dK, dV) [B,S,Hkv,D].  Per query head in f32,
     dK = scale * dS(input dtype)^T Q and dV = P(input dtype)^T dO, summed over
-    each GQA group in f32, then cast (_flash_gqa_bwd :638-640)."""
+    each GQA group in f32, then cast (_flash_gqa_bwd :638-640).  Keys that no
+    query sees get exact zeros."""
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    for hk, _, qh, _, doh, p, ds in _bwd_terms(q, k, v, do, lse, delta, scale, causal):
+    for hk, _, qh, _, doh, p, ds in _bwd_terms(q, k, v, do, lse, delta, scale, causal, q_offset):
         dk_h = scale * (ds.to(q.dtype).float().transpose(-1, -2) @ qh.float())  # b g s d
         dv_h = p.to(v.dtype).float().transpose(-1, -2) @ doh.float()
         dk[:, :, hk] = dk_h.sum(1).to(k.dtype)
@@ -272,8 +297,9 @@ def _raise_on_error(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: {lib.tdc_error_string(err).decode()} ({err})")
 
 
-def _launch(name: str, q, k, v, scale: float, causal: bool, with_lse: bool):
-    """One forward kernel (K1-K4): (o [B,T,Hq,D], lse [B,Hq,T,1] f32 or None)."""
+def _launch(name: str, q, k, v, scale: float, causal: bool, with_lse: bool, q_offset: int = 0):
+    """One forward kernel (K1-K4): (o [B,T,Hq,D], lse [B,Hq,T,1] f32 or None).
+    q_offset: K1's causal query offset (the other three take none)."""
     nhd = name in ("full_attention_nhd", "full_attention_nhd_seqq")
     _check(q, k, v, same_len=name != "flash_kernel", same_heads=nhd)
     qkv_strides = fwd_operand_strides(name, q, k, v)
@@ -283,18 +309,20 @@ def _launch(name: str, q, k, v, scale: float, causal: bool, with_lse: bool):
     lse = torch.empty((B, Hq, T, 1), dtype=torch.float32, device=q.device) if with_lse else None
     strides = (ctypes.c_int64 * 12)(*qkv_strides, *o.stride()[:3])
     lib = build.load(name)
+    offset = (int(q_offset),) if name == "flash_kernel" else ()
     err = getattr(lib, build.entry_point(name))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         int(q.dtype == torch.float32), B, T, S, Hq, Hkv, D, S, strides,
-        int(causal), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), *offset, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(lib, name, err)
     launches[name] += 1
     return o, lse
 
 
-def _launch_bwd(name: str, q, k, v, do, lse, delta, scale: float, causal: bool):
+def _launch_bwd(name: str, q, k, v, do, lse, delta, scale: float, causal: bool,
+                q_offset: int = 0):
     """One backward kernel: K5 returns dQ, K6 returns (dK, dV)."""
     _check(q, k, v, extra=(("dO", do),))
     B, T, Hq, D = q.shape
@@ -314,7 +342,8 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, scale: float, causal: bool):
     err = getattr(lib, build.entry_point(name))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         ptr(dq), ptr(dk), ptr(dv), int(q.dtype == torch.float32), B, T, S, Hq, Hkv, D, S,
-        strides, int(causal), float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        strides, int(causal), int(q_offset), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on_error(lib, name, err)
     launches[name] += 1
@@ -330,11 +359,13 @@ def _route(q) -> bool:
     raise ValueError(f"unsupported device {q.device}")
 
 
-def flash_kernel(q, k, v, scale: float, causal: bool = True):
-    """K1: causal (or full) GQA attention -> (o [B,T,Hq,D], lse [B,Hq,T,1])."""
+def flash_kernel(q, k, v, scale: float, causal: bool = True, q_offset: int = 0):
+    """K1: causal (or full) GQA attention -> (o [B,T,Hq,D], lse [B,Hq,T,1]);
+    q_offset: the causal query offset (module docstring)."""
+    _check_offset(q.shape[1], k.shape[1], q_offset)
     if not _route(q):
-        return flash_attention_plain(q, k, v, scale, causal)
-    return _launch("flash_kernel", q, k, v, scale, causal, with_lse=True)
+        return flash_attention_plain(q, k, v, scale, causal, q_offset)
+    return _launch("flash_kernel", q, k, v, scale, causal, with_lse=True, q_offset=q_offset)
 
 
 def full_attention_nhd(q, k, v, scale: float) -> torch.Tensor:
@@ -358,18 +389,22 @@ def full_attention(q, k, v, scale: float):
     return _launch("full_attention", q, k, v, scale, False, with_lse=True)
 
 
-def flash_dq_kernel(q, k, v, do, lse, delta, scale: float, causal: bool) -> torch.Tensor:
+def flash_dq_kernel(q, k, v, do, lse, delta, scale: float, causal: bool,
+                    q_offset: int = 0) -> torch.Tensor:
     """K5: dQ [B,T,Hq,D] from q, k, v, dO, lse and delta ([B,Hq,T,1] f32)."""
+    _check_offset(q.shape[1], k.shape[1], q_offset)
     if not _route(q):
-        return flash_dq_plain(q, k, v, do, lse, delta, scale, causal)
-    return _launch_bwd("flash_dq_kernel", q, k, v, do, lse, delta, scale, causal)
+        return flash_dq_plain(q, k, v, do, lse, delta, scale, causal, q_offset)
+    return _launch_bwd("flash_dq_kernel", q, k, v, do, lse, delta, scale, causal, q_offset)
 
 
-def flash_dkv_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
-    """K6: (dK, dV) [B,S,Hkv,D], summed over each GQA group."""
+def flash_dkv_kernel(q, k, v, do, lse, delta, scale: float, causal: bool, q_offset: int = 0):
+    """K6: (dK, dV) [B,S,Hkv,D], summed over each GQA group; zero for the
+    keys no query sees."""
+    _check_offset(q.shape[1], k.shape[1], q_offset)
     if not _route(q):
-        return flash_dkv_plain(q, k, v, do, lse, delta, scale, causal)
-    return _launch_bwd("flash_dkv_kernel", q, k, v, do, lse, delta, scale, causal)
+        return flash_dkv_plain(q, k, v, do, lse, delta, scale, causal, q_offset)
+    return _launch_bwd("flash_dkv_kernel", q, k, v, do, lse, delta, scale, causal, q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -377,41 +412,41 @@ def flash_dkv_kernel(q, k, v, do, lse, delta, scale: float, causal: bool):
 # ---------------------------------------------------------------------------
 
 
-def _gqa_fwd(q, k, v, scale: float, causal: bool):
+def _gqa_fwd(q, k, v, scale: float, causal: bool, q_offset: int = 0):
     """_flash_gqa: (o, lse) from K4 for non-causal T == S <= 1024, else K1."""
     if _is_full(q.shape[1], k.shape[1], causal):
         return full_attention(q, k, v, scale)
-    return flash_kernel(q, k, v, scale, causal)
+    return flash_kernel(q, k, v, scale, causal, q_offset)
 
 
-def _gqa_bwd(q, k, v, o, lse, do, scale: float, causal: bool):
+def _gqa_bwd(q, k, v, o, lse, do, scale: float, causal: bool, q_offset: int = 0):
     """_flash_gqa_bwd: delta = rowsum(dO * O) in f32 outside the kernels
     (:579), then K5 and K6."""
     do = do.contiguous()
     if do.data_ptr() % 16 != 0:  # a view at an odd offset: the kernels load 16-byte chunks
         do = do.clone()
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
-    dq = flash_dq_kernel(q, k, v, do, lse, delta, scale, causal)
-    dk, dv = flash_dkv_kernel(q, k, v, do, lse, delta, scale, causal)
+    dq = flash_dq_kernel(q, k, v, do, lse, delta, scale, causal, q_offset)
+    dk, dv = flash_dkv_kernel(q, k, v, do, lse, delta, scale, causal, q_offset)
     return dq, dk, dv
 
 
 class _FlashCore(torch.autograd.Function):
     """_flash_core (:644-670): forward K1 (or K4) saving q, k, v, o and the
-    f32 lse; backward K5 and K6."""
+    f32 lse; backward K5 and K6, all at the same causal query offset."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, causal: bool):
-        o, lse = _gqa_fwd(q, k, v, scale, causal)
+    def forward(ctx, q, k, v, scale: float, causal: bool, q_offset: int = 0):
+        o, lse = _gqa_fwd(q, k, v, scale, causal, q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.q_offset = scale, causal, q_offset
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _gqa_bwd(q, k, v, o, lse, do, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
+        dq, dk, dv = _gqa_bwd(q, k, v, o, lse, do, ctx.scale, ctx.causal, ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 class _FlashFullNHD(torch.autograd.Function):
@@ -443,18 +478,23 @@ def flash_attention(
     mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     causal: Optional[bool] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """The JAX dispatch unchanged: runs the kernel the JAX package would run
-    on a TPU for these shapes, with its custom VJP."""
+    on a TPU for these shapes, with its custom VJP.  q_offset: the causal
+    query offset of K1, K5 and K6 (module docstring); a non-causal call
+    takes none."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if causal is None:
         causal = T == S  # prefill
     if not causal and mask is not None:
         raise NotImplementedError("arbitrary masks use the plain sdpa path")
+    if q_offset and not causal:
+        raise ValueError("a query offset needs causal attention")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     name = select_kernel(T, S, Hq, Hkv, D, causal)
     if name in ("full_attention_nhd", "full_attention_nhd_seqq"):
         return _FlashFullNHD.apply(q, k, v, scale, name)
-    return _FlashCore.apply(q, k, v, scale, causal)
+    return _FlashCore.apply(q, k, v, scale, causal, q_offset)

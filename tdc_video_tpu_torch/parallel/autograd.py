@@ -5,6 +5,9 @@ Megatron's pairing over an axis of the mesh, each a torch.autograd.Function:
     copy_to(x, mesh, axis)       forward x;               backward: sum over the axis
     reduce_from(x, mesh, axis)   forward: sum over axis;  backward: the gradient as it is
     gather_from(x, mesh, axis)   forward: concatenation;  backward: this rank's slice
+    gather_seq(x, mesh, axis, dim)
+                                 forward: concatenation;  backward: the sum over the
+                                 axis, then this rank's slice
     broadcast_from(x, mesh, axis, src)
                                  forward: the rank at `src`'s x on every rank;
                                  backward: the sum of the gradients, to `src`
@@ -20,7 +23,11 @@ backward sums again, which counts a gradient that every rank holds whole n
 times.  `broadcast_from` carries a layer split over `data` (FSDP) from its
 owner to every rank; the owner's leaf receives the sum of every rank's
 gradient of it, and the other ranks' input (a stand-in of the same shape)
-none.
+none.  `gather_seq` carries a layer's keys and values, split over the
+sequence (models/lm.py under `seq_axis`), to every rank: each rank's
+queries give a partial gradient of every key and value, so the backward
+sums them before it takes the rank's own block (an all_reduce, as gloo has
+no reduce-scatter for CUDA tensors).
 
 Each wrapper is x itself over an axis of one rank, and the plain collective
 when no gradient is recorded.  `counts` counts the collectives each kind
@@ -79,6 +86,21 @@ class _GatherFrom(torch.autograd.Function):
     def backward(ctx, g):
         w = g.shape[ctx.dim] // ctx.n
         return g.narrow(ctx.dim, ctx.coord * w, w), None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        counts["gather_seq"] += 1
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        counts["gather_seq_grad"] += 1
+        g = ctx.mesh.all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.axis)
+        w = g.shape[ctx.dim] // ctx.mesh.size(ctx.axis)
+        return g.narrow(ctx.dim, ctx.mesh.coords[ctx.axis] * w, w), None, None, None
 
 
 def _dense(x: torch.Tensor):
@@ -142,6 +164,17 @@ def gather_from(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
         counts["gather_from"] += 1
         return mesh.all_gather(x, axis, dim)
     return _GatherFrom.apply(x, mesh, axis, dim)
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: str, dim: int = 1) -> torch.Tensor:
+    """Every rank's block of x along `dim`, concatenated in rank order; the
+    gradient of the result summed over the axis flows back to each block."""
+    if mesh is None or mesh.size(axis) == 1:
+        return x
+    if not _grad(x):
+        counts["gather_seq"] += 1
+        return mesh.all_gather(x, axis, dim)
+    return _GatherSeq.apply(x, mesh, axis, dim)
 
 
 def broadcast_from(x: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:

@@ -469,3 +469,100 @@ def test_sample_rows_card_equals_cpu(cuda):
     ref = tgen.sample_rows(x, *rows)
     out = tgen.sample_rows(x.cuda(), *(r.cuda() for r in rows))
     assert torch.equal(out.cpu(), ref)
+
+
+# Causal query offset (K1, K5, K6; sequence parallelism): (B, T, S, Hq, Hkv,
+# D, q_offset).  A tile-aligned block of the sequence (the 2-way split's
+# second rank), the first rank's block (offset 0, keys past T unseen), an
+# offset off the 64-key tiles (two masked tiles a warpgroup), D = 64 and 72,
+# and a ragged last block that ends at S
+OFFSET_CASES = [(1, 256, 512, 6, 2, 128, 256), (1, 256, 512, 6, 2, 128, 0),
+                (1, 200, 600, 7, 1, 128, 333), (2, 129, 400, 3, 1, 64, 100),
+                (1, 145, 328, 4, 2, 72, 183)]
+
+
+def _offset_bwd_inputs(seed, B, T, S, Hq, Hkv, D, q_offset, dtype):
+    """q, k, v, dO and the plain forward's lse and delta at the offset."""
+    q, k, v = _qkv(seed, B, T, S, Hq, Hkv, D, dtype)
+    do = _qkv(seed + 1, B, T, S, Hq, Hq, D, dtype)[0]
+    o, lse = tfa.flash_attention_plain(q, k, v, 1 / math.sqrt(D), True, q_offset)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()[..., None]
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_offset_kernels_match_plain(cuda, case, dtype, rel):
+    """K1, K5 and K6 at a causal query offset against their plain versions
+    at the same offset: each query's o and dQ, each key's dK and dV, within
+    rel of its row norm; lse within 1e-3 (f32: 1e-4)."""
+    B, T, S, Hq, Hkv, D, off = case
+    args = _offset_bwd_inputs(21, B, T, S, Hq, Hkv, D, off, dtype)
+    q, k, v = args[:3]
+    scale = 1 / math.sqrt(D)
+    tfa.reset_launches()
+    out, lse = tfa.flash_kernel(q, k, v, scale, True, q_offset=off)
+    ref, lse_ref = tfa.flash_attention_plain(q, k, v, scale, True, off)
+    dq = tfa.flash_dq_kernel(*args, scale, True, q_offset=off)
+    dk, dv = tfa.flash_dkv_kernel(*args, scale, True, q_offset=off)
+    dq_ref = tfa.flash_dq_plain(*args, scale, True, off)
+    dk_ref, dv_ref = tfa.flash_dkv_plain(*args, scale, True, off)
+    torch.cuda.synchronize()
+    assert [tfa.launches[n] for n in ("flash_kernel", "flash_dq_kernel", "flash_dkv_kernel")] == [1, 1, 1]
+    assert float((lse - lse_ref).abs().max()) <= (1e-3 if dtype == torch.bfloat16 else 1e-4)
+    for got, want in ((out, ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _close(got, want, rel)
+
+
+@pytest.mark.parametrize("off", [256, 448])
+def test_k1_offset_block_is_whole_call_rows(cuda, off):
+    """A block of queries at a 64-aligned offset gives the rows of a K1 call
+    over the whole sequence bit for bit (o and lse): each warpgroup sees the
+    same tiles under the same masks."""
+    B, S, Hq, Hkv, D, T = 1, 1024, 6, 2, 128, 256
+    q, k, v = _qkv(22, B, S, S, Hq, Hkv, D, torch.bfloat16)
+    scale = 1 / math.sqrt(D)
+    o, lse = tfa.flash_kernel(q, k, v, scale, True)
+    ob, lb = tfa.flash_kernel(q[:, off:off + T], k, v, scale, True, q_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(ob, o[:, off:off + T]) and torch.equal(lb, lse[:, :, off:off + T])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_offset_unseen_keys_written_zero(cuda, dtype):
+    """Keys past the block's last diagonal (q_offset + T - 1) meet no query:
+    K6 writes them as exact zeros into outputs whose memory held NaN just
+    before (the caching allocator hands the same block back), so a rank's
+    partial dK and dV may be summed."""
+    B, T, S, Hq, Hkv, D, off = 1, 256, 1024, 6, 2, 128, 256
+    args = _offset_bwd_inputs(23, B, T, S, Hq, Hkv, D, off, dtype)
+    scale = 1 / math.sqrt(D)
+    poison = [torch.full((B, S, Hkv, D), float("nan"), dtype=dtype, device="cuda") for _ in range(2)]
+    del poison
+    dk, dv = tfa.flash_dkv_kernel(*args, scale, True, q_offset=off)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dk).all()) and bool(torch.isfinite(dv).all())
+    assert float(dk[:, off + T:].abs().max()) == 0.0 and float(dv[:, off + T:].abs().max()) == 0.0
+    assert float(dv[:, :off + T].abs().max()) > 0.0
+
+
+def test_offset_blocks_sum_to_whole_backward(cuda):
+    """f32: dQ of each block is the whole call's rows, and the blocks' dK and
+    dV (each rank's partial) sum to the whole call's, within 1e-4 of each
+    key's norm."""
+    B, S, Hq, Hkv, D, n = 1, 512, 6, 2, 128, 4
+    q, k, v, do, lse, delta = _offset_bwd_inputs(24, B, S, S, Hq, Hkv, D, 0, torch.float32)
+    scale = 1 / math.sqrt(D)
+    dq = tfa.flash_dq_kernel(q, k, v, do, lse, delta, scale, True)
+    dk, dv = tfa.flash_dkv_kernel(q, k, v, do, lse, delta, scale, True)
+    w = S // n
+    dks, dvs = torch.zeros_like(dk), torch.zeros_like(dv)
+    for c in range(n):
+        r = slice(c * w, (c + 1) * w)
+        part = (q[:, r], k, v, do[:, r], lse[:, :, r].contiguous(), delta[:, :, r].contiguous())
+        _close(tfa.flash_dq_kernel(*part, scale, True, q_offset=c * w), dq[:, r], 1e-4)
+        a, b = tfa.flash_dkv_kernel(*part, scale, True, q_offset=c * w)
+        dks, dvs = dks + a, dvs + b
+    torch.cuda.synchronize()
+    _close(dks, dk, 1e-4)
+    _close(dvs, dv, 1e-4)

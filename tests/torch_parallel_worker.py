@@ -28,6 +28,11 @@ Modes:
          encode_frames(remat=True) over `data`
   train22 world 4: tdc_loss, stage-3 LoRA with audio and QLoRA on 2x2
   run    world 2: train.run.main with the coordinator flags
+  seq    world 2: sequence parallelism (lm_forward(seq_axis="data")) of
+         LM_TINY over 2x1, and 2x1 with FSDP's split layers: each rank's
+         logits block gathered, and every gradient summed over `data` and
+         gathered whole; gather_seq against its one-process meaning
+  seq4   world 4: the same over 4x1 and 2x2 (with TP over `model`)
 
 Not a test file (no test_ prefix): pytest does not collect it.
 """
@@ -561,8 +566,111 @@ def train_patches():
         real(path), dtype=torch.float32, compress_dtype=torch.float32)}
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism (tests/test_torch_seq_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def whole_grads(params, spec, mesh):
+    """Every leaf's gradient as one process has it (collective: every rank
+    calls it): summed over `data` where the leaf is whole on it (each rank's
+    rows give a part), taken as it is where FSDP splits the layers over
+    `data` (the owner's broadcast gathered every rank's part), then
+    gathered over each axis that splits the leaf.  Leaves whole over
+    `model` already hold the whole gradient on every rank of it."""
+    import torch
+
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS
+    from tdc_video_tpu_torch.parallel.sharding import _map2
+
+    def one(t, s):
+        with torch.no_grad():
+            g = t.grad.clone()
+            if DATA_AXIS not in s:
+                mesh.all_reduce(g, DATA_AXIS)
+            for dim, axis in enumerate(s):
+                if axis is not None and mesh.size(axis) > 1:
+                    g = mesh.all_gather(g, axis, dim)
+        return g
+
+    return _map2(one, params, spec)
+
+
+def seq_case(torch, inp, mesh, fsdp):
+    """lm_forward(seq_axis="data") of LM_TINY on this rank's shard: the
+    gathered logits, the shifted cross-entropy over the whole batch (each
+    rank's rows' share, summed over `data`) and its whole gradients, the
+    block's shape and the collectives counted."""
+    from tdc_video_tpu_torch.config import LM_TINY
+    from tdc_video_tpu_torch.models.lm import lm_forward
+    from tdc_video_tpu_torch.parallel import autograd
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS
+    from tdc_video_tpu_torch.parallel.sharding import _map, lm_param_spec, shard_tree
+
+    spec = lm_param_spec(inp["lm"], fsdp_size=mesh.size(DATA_AXIS) if fsdp else 0)
+    params = shard_tree(clone_tree(inp["lm"]), spec, mesh)
+    _map(lambda _p, t: t.requires_grad_(), params)
+    autograd.reset_counts()
+    logits = lm_forward(LM_TINY, params, input_ids=inp["ids"], attention_mask=inp["mask"],
+                        attn_impl="flash", dtype=torch.float32, mesh=mesh, seq_axis=DATA_AXIS)
+    n, c = mesh.size(DATA_AXIS), mesh.coords[DATA_AXIS]
+    labels = inp["labels"]
+    w = labels.shape[1] // n
+    # row t predicts label t + 1; the last row predicts nothing
+    target = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -100)], 1)[:, c * w:(c + 1) * w]
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.take_along_dim(logp, target.clamp_min(0)[..., None], dim=-1)[..., 0]
+    loss = -(ll * (target >= 0)).sum() / (labels[:, 1:] >= 0).sum()
+    loss.backward()
+    counts = dict(autograd.counts)
+    return {"logits": mesh.all_gather(logits.detach(), DATA_AXIS, dim=1),
+            "loss": float(mesh.all_reduce(loss.detach().clone(), DATA_AXIS)),
+            "grads": whole_grads(params, spec, mesh), "block": tuple(logits.shape),
+            "counts": counts}
+
+
+def gather_seq_check(torch, mesh):
+    """gather_seq over `data`: forward every rank's block in rank order;
+    backward, with rank r's loss sum(y * w * (r + 1)), each block's rows of
+    w times the sum of (r + 1) over the ranks."""
+    from tdc_video_tpu_torch.parallel import autograd as ag
+    from tdc_video_tpu_torch.parallel.mesh import DATA_AXIS
+
+    n, c = mesh.size(DATA_AXIS), mesh.coords[DATA_AXIS]
+    g = torch.Generator().manual_seed(5)
+    xs = [torch.randn(2, 3, 4, generator=g) for _ in range(n)]
+    w = torch.randn(2, 3 * n, 4, generator=g)
+    x = xs[c].clone().requires_grad_()
+    y = ag.gather_seq(x, mesh, DATA_AXIS, 1)
+    (y * w * (c + 1)).sum().backward()
+    return (torch.cat([y.detach(), x.grad], 1),
+            torch.cat([torch.cat(xs, 1), w[:, 3 * c:3 * (c + 1)] * sum(range(1, n + 1))], 1))
+
+
+def _seq_mode(torch, inp, shapes):
+    from tdc_video_tpu_torch.parallel.mesh import init_distributed, make_mesh, warmup_collectives
+
+    init_distributed(device="cpu", timeout_s=120)
+    res = {}
+    for tag, (n_data, n_model, fsdp) in shapes.items():
+        mesh = make_mesh(n_data, n_model, device="cpu")
+        warmup_collectives(mesh)
+        res[tag] = seq_case(torch, inp, mesh, fsdp)
+        res[tag]["gather_seq"] = gather_seq_check(torch, mesh)
+    return res
+
+
+def run_seq(torch, inp, workdir):
+    return _seq_mode(torch, inp, {"2x1": (2, 1, False), "2x1_fsdp": (2, 1, True)})
+
+
+def run_seq4(torch, inp, workdir):
+    return _seq_mode(torch, inp, {"4x1": (4, 1, False), "2x2": (2, 2, False)})
+
+
 MODES = {"tp": run_tp, "tp22": run_tp22, "round": run_round, "eval": run_eval,
-         "train": run_train, "train22": run_train22, "run": run_run}
+         "train": run_train, "train22": run_train22, "run": run_run, "seq": run_seq,
+         "seq4": run_seq4}
 
 
 def main():
