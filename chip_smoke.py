@@ -1446,7 +1446,8 @@ def phase_multi_serving(cfg, params, pred, frames):
     # (b) chunked admission, 512 tokens a chunk
     ids_b, eng_b, wall_b, ttft_b, _ = _serve_run(pred, frames, "p12-a", num_slots=SERVE_SLOTS,
                                                  prefill_chunk=SERVE_CHUNK)
-    gaps = [b - a for a, b in zip(eng_b.chunk_times, eng_b.chunk_times[1:])]
+    ends = [t for _, t, _ in eng_b.chunk_spans]  # each chunk's harvest
+    gaps = [b - a for a, b in zip(ends, ends[1:])]
     ties_b = hold_all("(b)", ids_b, ids_a)
     _leg(12, "b_chunked_admission", prefill_chunk=SERVE_CHUNK, wall_s=wall_b,
            prefill_chunks=eng_b.prefill_chunks, largest_gap_between_chunks_s=max(gaps, default=0.0),

@@ -44,8 +44,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="int8: weight-only int8 LM; int8-all: also int8 towers and s8 x s8 "
                          "prefill")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
-                    help="write a torch.profiler trace of the answer into LOGDIR and print "
-                         "its stage times")
+                    help="write a torch.profiler trace of the answer and its spans into "
+                         "LOGDIR and print the spans' times")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -59,7 +59,7 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     from ..builder import load_pretrained_model
     from ..eval.runner import HFTokenizerAdapter, TDCPredictor
     from ..media.io import decode_video, load_audio
-    from ..utils.profiling import trace
+    from ..utils.profiling import collect, table, trace
 
     t_load = time.time()
     hf_tok, model, _, _ = load_pretrained_model(
@@ -100,10 +100,8 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
     answer_s = time.time() - t1
     print(f"\n{answer}\n\n[{answer_s:.1f}s inference]")
     if args.profile:
-        s = predictor.stats
-        print(f"[profile] encode {s.encode_s:.2f}s audio {s.audio_s:.2f}s compress+prefill "
-              f"{s.prefill_s:.2f}s decode {s.decode_s:.2f}s ({s.decode_steps} steps) "
-              f"trace -> {args.profile}")
+        print(f"[profile] the answer's spans; trace.json and spans.json -> {args.profile}\n"
+              f"{table(collect())}")
     return {"answer": answer, "ids": list(predictor.stats.last_ids), "n_frames": len(frames),
             "audio_samples": None if wav is None else len(wav),
             "load_s": load_s, "decode_s": decode_s, "answer_s": answer_s}

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import TDCConfig
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +205,11 @@ def cubic_resize_matrix(n_in: int, n_out: int, antialias: bool = True) -> np.nda
 def device_preprocess(frames_u8: torch.Tensor, cfg: TDCConfig):
     """uint8 frames [T, h, w, 3] (on the target device) -> (siglip_px,
     dino_px) f32, normalized, channels-last."""
+    with span("encode.preprocess", device=True, frames=frames_u8.shape[0]):
+        return _device_preprocess(frames_u8, cfg)
+
+
+def _device_preprocess(frames_u8: torch.Tensor, cfg: TDCConfig):
     T, h, w, _ = frames_u8.shape
     side = max(h, w)
     top, left = (side - h) // 2, (side - w) // 2

@@ -315,8 +315,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="pad, resize and normalize frames on the device (the host path, "
                          "bit for bit the reference's processor chain, is the default)")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
-                    help="write a torch.profiler trace of the run into LOGDIR and print the "
-                         "last answer's stages")
+                    help="write a torch.profiler trace of the run and its spans into LOGDIR "
+                         "and print the spans' times")
     ap.add_argument("--quantize", default=None, choices=["int8", "int8-all"],
                     help="int8: weight-only int8 LM; int8-all: the towers too, with int8 "
                          "products")
@@ -355,10 +355,10 @@ def run(args: argparse.Namespace, tokenizer=None) -> Dict[str, Any]:
                                 batch_slots=args.batch_slots)
     seconds = time.time() - t0
     if args.profile:
-        s = predictor.stats
-        print(f"[profile] {s.samples} samples; last answer: encode {s.encode_s:.2f}s "
-              f"compress+prefill {s.prefill_s:.2f}s decode {s.decode_s:.2f}s "
-              f"({s.decode_steps} steps); trace -> {args.profile}", flush=True)
+        from ..utils.profiling import collect, table
+
+        print(f"[profile] {predictor.stats.samples} samples' spans; trace.json and spans.json -> "
+              f"{args.profile}\n{table(collect())}", flush=True)
     return {"metrics": metrics, "seconds": seconds}
 
 

@@ -56,6 +56,7 @@ from ..model import encode_audio, encode_frames, prepare_multimodal_from_feature
 from ..ops.audio import second_groups
 from ..parallel.mesh import DATA_AXIS
 from ..serving.generate import generate_encoded, inference_params
+from ..utils.profiling import span
 
 
 LETTERS = ["A", "B", "C", "D", "E"]
@@ -331,18 +332,19 @@ class TDCPredictor:
     def answer(self, frames: np.ndarray, question: str, qformer_prompt: Optional[str] = None,
                wav: Optional[np.ndarray] = None, frame_seconds: Optional[np.ndarray] = None,
                max_new_tokens: Optional[int] = None, video_uid: Optional[str] = None) -> str:
-        req = self.prepare(frames, question, qformer_prompt, wav, frame_seconds, max_new_tokens,
-                           video_uid)
-        timings: Dict[str, float] = {}
-        toks = generate_encoded(self.cfg, self.params, **req["gen"], attn_impl=self.attn_impl,
-                                timings=timings, kv_quant=self.kv_quant,
-                                act_quant=self.act_quant, spec_window=self.spec_window,
-                                spec_ngram=self.spec_ngram, mesh=self.mesh)
-        ids = _trim_generated(toks[0].tolist(), self.cfg.lm)
-        st = self.stats
-        st.samples += 1
-        st.prefill_s, st.decode_s = timings["prefill_s"], timings["decode_s"]
-        st.decode_steps, st.last_ids = int(timings["decode_steps"]), ids
+        with span("answer", root=True, frames=len(frames)):
+            req = self.prepare(frames, question, qformer_prompt, wav, frame_seconds,
+                               max_new_tokens, video_uid)
+            timings: Dict[str, float] = {}
+            toks = generate_encoded(self.cfg, self.params, **req["gen"], attn_impl=self.attn_impl,
+                                    timings=timings, kv_quant=self.kv_quant,
+                                    act_quant=self.act_quant, spec_window=self.spec_window,
+                                    spec_ngram=self.spec_ngram, mesh=self.mesh)
+            ids = _trim_generated(toks[0].tolist(), self.cfg.lm)
+            st = self.stats
+            st.samples += 1
+            st.prefill_s, st.decode_s = timings["prefill_s"], timings["decode_s"]
+            st.decode_steps, st.last_ids = int(timings["decode_steps"]), ids
         return self.tok.decode(ids).strip()
 
     # -- continuous batching --------------------------------------------------
@@ -414,42 +416,44 @@ class TDCPredictor:
         only its suffix."""
         from ..serving.batching import DecodeEngine, Request
 
-        cfg = self.cfg
-        mnt = max_new_tokens or self.max_new_tokens
-        prefixes = []
-        for q in questions:
-            embeds, amask, pids = self.pack_prompt(frames, q, wav=wav, frame_seconds=frame_seconds,
-                                                   video_uid=video_uid)
-            prefixes.append((embeds, amask.cpu().numpy(), pids))
-        shared_p = self._shared_prefix_len(prefixes) if len(prefixes) > 1 else 0
-        if shared_p < prefix_share_threshold:
-            shared_p = 0
-        spec_window = self.spec_window
-        # keep the whole mnt budget beside the window - 1 rows of verify headroom
-        cap_pad = mnt + max(spec_window - 1, 0)
-        capacity = int(np.ceil((max(p[0].shape[1] for p in prefixes) + cap_pad) / 128) * 128)
-        slots = min(num_slots, len(prefixes))
-        kvq = kv_quant or self.kv_quant
-        ekey = (slots, capacity, kvq, prefill_chunk, spec_window)
-        eng = self._engine_cache.pop(ekey, None)
-        if eng is None:
-            eng = DecodeEngine(cfg, self.params, num_slots=slots, capacity=capacity,
-                               attn_impl=self.attn_impl, kv_quant=kvq, act_quant=self.act_quant,
-                               spec_window=spec_window, spec_ngram=self.spec_ngram,
-                               prefill_chunk=prefill_chunk, on_tokens=on_tokens,
-                               mesh=self.mesh, device=self.device)
-        else:
-            eng.reset(on_tokens=on_tokens)
-        # LRU: the 2 most recent shapes stay (each holds a slots x capacity cache)
-        self._engine_cache[ekey] = eng
-        while len(self._engine_cache) > 2:
-            self._engine_cache.pop(next(iter(self._engine_cache)))
-        for i, (embeds, mask, pids) in enumerate(prefixes):
-            eng.submit(Request(embeds=embeds, attn_mask=mask, max_new_tokens=mnt, uid=i,
-                               prompt_ids=pids, prefix_key="video" if shared_p else None,
-                               prefix_len=shared_p, temperature=temperature, top_k=top_k,
-                               top_p=top_p, seed=seed + i))
-        done = eng.run()
+        with span("answer_many", root=True, questions=len(questions)):
+            cfg = self.cfg
+            mnt = max_new_tokens or self.max_new_tokens
+            prefixes = []
+            for q in questions:
+                embeds, amask, pids = self.pack_prompt(frames, q, wav=wav,
+                                                       frame_seconds=frame_seconds,
+                                                       video_uid=video_uid)
+                prefixes.append((embeds, amask.cpu().numpy(), pids))
+            shared_p = self._shared_prefix_len(prefixes) if len(prefixes) > 1 else 0
+            if shared_p < prefix_share_threshold:
+                shared_p = 0
+            spec_window = self.spec_window
+            # keep the whole mnt budget beside the window - 1 rows of verify headroom
+            cap_pad = mnt + max(spec_window - 1, 0)
+            capacity = int(np.ceil((max(p[0].shape[1] for p in prefixes) + cap_pad) / 128) * 128)
+            slots = min(num_slots, len(prefixes))
+            kvq = kv_quant or self.kv_quant
+            ekey = (slots, capacity, kvq, prefill_chunk, spec_window)
+            eng = self._engine_cache.pop(ekey, None)
+            if eng is None:
+                eng = DecodeEngine(cfg, self.params, num_slots=slots, capacity=capacity,
+                                   attn_impl=self.attn_impl, kv_quant=kvq, act_quant=self.act_quant,
+                                   spec_window=spec_window, spec_ngram=self.spec_ngram,
+                                   prefill_chunk=prefill_chunk, on_tokens=on_tokens,
+                                   mesh=self.mesh, device=self.device)
+            else:
+                eng.reset(on_tokens=on_tokens)
+            # LRU: the 2 most recent shapes stay (each holds a slots x capacity cache)
+            self._engine_cache[ekey] = eng
+            while len(self._engine_cache) > 2:
+                self._engine_cache.pop(next(iter(self._engine_cache)))
+            for i, (embeds, mask, pids) in enumerate(prefixes):
+                eng.submit(Request(embeds=embeds, attn_mask=mask, max_new_tokens=mnt, uid=i,
+                                   prompt_ids=pids, prefix_key="video" if shared_p else None,
+                                   prefix_len=shared_p, temperature=temperature, top_k=top_k,
+                                   top_p=top_p, seed=seed + i))
+            done = eng.run()
         if eng.on_tokens_errors:
             # the engine isolates callback errors so that decoding finishes;
             # a broken stream consumer is still reported

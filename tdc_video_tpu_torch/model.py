@@ -36,6 +36,7 @@ from .ops.pooling import adaptive_pool_matrix
 from .ops.segment import segment_boundaries
 from .parallel.autograd import gather_from
 from .parallel.mesh import DATA_AXIS
+from .utils.profiling import span
 
 Params = Any
 
@@ -109,20 +110,35 @@ def encode_frames(
     gather has a backward (parallel/autograd.gather_from): each rank's
     gradient of the whole result gives its share's, so a loss every rank
     computes whole gives each rank the gradients of its frames' encode
-    (the SVA's summed over `data` are one process's)."""
-    if mesh is not None and mesh.size(DATA_AXIS) > 1:
+    (the SVA's summed over `data` are one process's).
+
+    Every caller's encode is one `encode` span (utils/profiling.py), over
+    the towers' and the SVA's spans."""
+    with span("encode", device=True, frames=siglip_px.shape[0]):
+        if mesh is None or mesh.size(DATA_AXIS) == 1:
+            return _encode_frames(cfg, params, siglip_px, dino_px, attn_impl, remat,
+                                  frame_indices)
         n, T = mesh.size(DATA_AXIS), siglip_px.shape[0]
         if T % n:
             raise ValueError(f"data axis {n} does not divide {T} frames")
         d = mesh.coords[DATA_AXIS]
         share = slice(d * (T // n), (d + 1) * (T // n))
-        ff, df = encode_frames(cfg, params, siglip_px[share], dino_px[share], attn_impl, remat,
-                               frame_indices=None if frame_indices is None
-                               else frame_indices[share])
+        ff, df = _encode_frames(cfg, params, siglip_px[share], dino_px[share], attn_impl, remat,
+                                None if frame_indices is None else frame_indices[share])
         return gather_from(ff, mesh, DATA_AXIS), gather_from(df, mesh, DATA_AXIS)
+
+
+def _encode_frames(cfg: TDCConfig, params: Params, siglip_px: torch.Tensor,
+                   dino_px: torch.Tensor, attn_impl: str, remat: bool,
+                   frame_indices: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """encode_frames on this process's frames."""
     dt = cfg.dtype
-    dino_feats = vit_forward(cfg.dino, params["dino"], dino_px, attn_impl=attn_impl, dtype=dt)
-    siglip_feats = vit_forward(cfg.siglip, params["siglip"], siglip_px, attn_impl=attn_impl, dtype=dt)
+    n = siglip_px.shape[0]
+    with span("encode.dino", device=True, frames=n):
+        dino_feats = vit_forward(cfg.dino, params["dino"], dino_px, attn_impl=attn_impl, dtype=dt)
+    with span("encode.siglip", device=True, frames=n):
+        siglip_feats = vit_forward(cfg.siglip, params["siglip"], siglip_px, attn_impl=attn_impl,
+                                   dtype=dt)
     if remat:
         CH = 16
         Tt = siglip_feats.shape[0]
@@ -162,14 +178,15 @@ def encode_audio(
     """Per-frame audio tokens [num_frames, 50, H_lm], already through
     audio_proj (JAX :179-203): fbank (f32), BEATs in cfg.dtype, per-second
     slicing, pooling of each frame's group of seconds."""
-    fb = kaldi_fbank(wav_windows)
-    fb_mask = wav_mask[:, ::160][:, : fb.shape[1]]
-    tokens, _ = beats_forward(cfg.beats, params["beats"], fb, fb_mask, dtype=cfg.dtype)
-    per_sec = window_to_seconds(tokens)  # [W, 10, 50, C]
-    per_sec = per_sec.reshape((-1,) + per_sec.shape[2:])
-    frame_audio = pool_seconds_to_frames(per_sec, frame_of_sec, group_pos, group_size, num_frames,
-                                         sec_valid)
-    return linear(params["audio_proj"], frame_audio.to(cfg.dtype))
+    with span("encode.audio", device=True, seconds=10 * wav_windows.shape[0]):
+        fb = kaldi_fbank(wav_windows)
+        fb_mask = wav_mask[:, ::160][:, : fb.shape[1]]
+        tokens, _ = beats_forward(cfg.beats, params["beats"], fb, fb_mask, dtype=cfg.dtype)
+        per_sec = window_to_seconds(tokens)  # [W, 10, 50, C]
+        per_sec = per_sec.reshape((-1,) + per_sec.shape[2:])
+        frame_audio = pool_seconds_to_frames(per_sec, frame_of_sec, group_pos, group_size,
+                                             num_frames, sec_valid)
+        return linear(params["audio_proj"], frame_audio.to(cfg.dtype))
 
 
 def prepare_visual(
@@ -291,39 +308,43 @@ def prepare_multimodal_from_features(
     segments and chunks) and the splice runs batched.  remat_encode=True
     (training) checkpoints each sample's segment+compress stage, so only its
     inputs are kept for the backward."""
-    B, T = frame_mask.shape
-    P = frame_feats.shape[2]
-    dev = frame_feats.device
-    if token_valid is None:
-        token_valid = torch.ones((B, P), dtype=torch.bool, device=dev)
-    if query_pool is None:
-        K = cfg.compression.context_token_num
-        query_pool = torch.from_numpy(adaptive_pool_matrix(P, K)).to(dev)[None].expand(B, K, P)
+    with span("compress", device=True) as sp:
+        B, T = frame_mask.shape
+        P = frame_feats.shape[2]
+        dev = frame_feats.device
+        if token_valid is None:
+            token_valid = torch.ones((B, P), dtype=torch.bool, device=dev)
+        if query_pool is None:
+            K = cfg.compression.context_token_num
+            query_pool = torch.from_numpy(adaptive_pool_matrix(P, K)).to(dev)[None].expand(B, K, P)
 
-    def one(ff, df, fm, tid, tmask, tv, qp, atok):
-        return prepare_visual(cfg, params, ff, df, fm, tid, tmask, atok,
-                              max_visual_len=max_visual_len, token_valid=tv, query_pool=qp,
-                              remat=remat_encode)
+        def one(ff, df, fm, tid, tmask, tv, qp, atok):
+            return prepare_visual(cfg, params, ff, df, fm, tid, tmask, atok,
+                                  max_visual_len=max_visual_len, token_valid=tv, query_pool=qp,
+                                  remat=remat_encode)
 
-    vis, nvis = [], []
-    for b in range(B):
-        args = (frame_feats[b], dino_feats[b], frame_mask[b],
-                None if qformer_text_ids is None else qformer_text_ids[b],
-                None if qformer_text_mask is None else qformer_text_mask[b],
-                token_valid[b], query_pool[b],
-                None if audio_tokens is None else audio_tokens[b])
-        v, nv = checkpoint(one, *args, use_reentrant=False) if remat_encode else one(*args)
-        vis.append(v)
-        nvis.append(nv)
-    text_embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype, mesh)
-    visual = torch.stack(vis).to(text_embeds.dtype)
-    if text_len is None:
-        text_len = torch.full((B,), input_ids.shape[1], dtype=torch.int32, device=dev)
-    embeds, attn_mask, out_labels, seq_len = splice_visual_dynamic(
-        text_embeds, image_pos, visual, torch.stack(nvis), max_len, labels=labels,
-        text_len=text_len, has_image=has_image,
-    )
-    return {"embeds": embeds, "attn_mask": attn_mask, "labels": out_labels, "seq_len": seq_len}
+        vis, nvis = [], []
+        for b in range(B):
+            args = (frame_feats[b], dino_feats[b], frame_mask[b],
+                    None if qformer_text_ids is None else qformer_text_ids[b],
+                    None if qformer_text_mask is None else qformer_text_mask[b],
+                    token_valid[b], query_pool[b],
+                    None if audio_tokens is None else audio_tokens[b])
+            v, nv = checkpoint(one, *args, use_reentrant=False) if remat_encode else one(*args)
+            vis.append(v)
+            nvis.append(nv)
+        text_embeds = lm_mod.embed_tokens(cfg.lm, params["lm"], input_ids, cfg.dtype, mesh)
+        visual = torch.stack(vis).to(text_embeds.dtype)
+        if text_len is None:
+            text_len = torch.full((B,), input_ids.shape[1], dtype=torch.int32, device=dev)
+        n_visual = torch.stack(nvis)
+        embeds, attn_mask, out_labels, seq_len = splice_visual_dynamic(
+            text_embeds, image_pos, visual, n_visual, max_len, labels=labels,
+            text_len=text_len, has_image=has_image,
+        )
+        if sp:
+            sp.set(visual_rows=n_visual.sum(), rows=seq_len.sum())
+        return {"embeds": embeds, "attn_mask": attn_mask, "labels": out_labels, "seq_len": seq_len}
 
 
 def prepare_multimodal_multi_image(

@@ -14,6 +14,7 @@ import torch
 
 from ..config import SVAConfig
 from ..device import resolve_device
+from ..utils.profiling import span
 from .layers import dot_f32, gelu_tanh, init_layer_norm, init_linear, layer_norm, linear, normal_init
 
 Params = Any
@@ -160,6 +161,12 @@ def sva_forward(
 ) -> torch.Tensor:
     """Project towers, build the query grid, run the sampler groups, concat,
     project to the LLM hidden size.  Returns [B, image_token_len, llm_hidden]."""
+    with span("encode.sva", device=True, frames=tower_feats[0].shape[0]):
+        return _sva_forward(cfg, params, tower_feats, masks)
+
+
+def _sva_forward(cfg: SVAConfig, params: Params, tower_feats: List[torch.Tensor],
+                 masks: Optional[List[Optional[torch.Tensor]]]) -> torch.Tensor:
     projected = [aux_project(params["aux_projectors"][i], f) for i, f in enumerate(tower_feats)]
     B = projected[0].shape[0]
     context = projected[0].mean(dim=1, keepdim=True)  # [B, 1, D]

@@ -22,7 +22,8 @@ D] in place through their strides, so the JAX package's transposes to [B, H,
 T, D] are gone; bf16 operands are read through 4-D TMA tensor maps whose
 strides `operand_strides` passes.  Each wrapper takes its plain PyTorch version only
 for a tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
-`launches` counts kernel launches.
+`launches` counts kernel launches; while the span recorder records
+(utils/profiling.py), each launch is recorded with its shapes.
 
 K1, K5 and K6 take a causal query offset (sequence parallelism, models/lm.py
 `lm_forward(seq_axis=)`): key j is visible to query i iff j < kv_len and
@@ -45,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import build
 
 NEG_INF = -1e30
@@ -318,6 +320,7 @@ def _launch(name: str, q, k, v, scale: float, causal: bool, with_lse: bool, q_of
     )
     _raise_on_error(lib, name, err)
     launches[name] += 1
+    profiling.launch(name, q, k, causal, q_offset, with_lse)
     return o, lse
 
 
@@ -347,6 +350,7 @@ def _launch_bwd(name: str, q, k, v, do, lse, delta, scale: float, causal: bool,
     )
     _raise_on_error(lib, name, err)
     launches[name] += 1
+    profiling.launch(name, q, k, causal, q_offset)
     return dq if name == "flash_dq_kernel" else (dk, dv)
 
 

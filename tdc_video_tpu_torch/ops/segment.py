@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 
 def adjacent_cosine_similarity(feats: torch.Tensor, frame_mask: torch.Tensor) -> torch.Tensor:
     """feats [T, ...] (flattened per frame), mask [T] -> sims [T-1] f32.
@@ -25,20 +27,24 @@ def segment_boundaries(
     max_num_segments: int,
 ) -> torch.Tensor:
     """Returns boundary [T] bool: True where a new segment starts."""
-    T = dino_feats.shape[0]
-    n_valid = frame_mask.sum()
-    sims = adjacent_cosine_similarity(dino_feats, frame_mask)
-    k = min(max_num_segments, T - 1) if T > 1 else 0
-    long_boundary = torch.zeros((T,), dtype=torch.bool, device=dino_feats.device)
-    if k > 0:
-        # lax.top_k(-sims, k) returns equal values lowest index first; a
-        # stable descending sort keeps that order (torch.topk does not promise it)
-        cut_idx = torch.sort(-sims, descending=True, stable=True).indices[:k]
-        long_boundary[cut_idx + 1] = True
-    long_boundary = long_boundary & frame_mask
-    long_boundary[0] = frame_mask[0]
-    short = n_valid <= max_num_segments + 1
-    return torch.where(short, frame_mask, long_boundary)
+    with span("compress.segment", device=True, frames=dino_feats.shape[0]) as sp:
+        T = dino_feats.shape[0]
+        n_valid = frame_mask.sum()
+        sims = adjacent_cosine_similarity(dino_feats, frame_mask)
+        k = min(max_num_segments, T - 1) if T > 1 else 0
+        long_boundary = torch.zeros((T,), dtype=torch.bool, device=dino_feats.device)
+        if k > 0:
+            # lax.top_k(-sims, k) returns equal values lowest index first; a
+            # stable descending sort keeps that order (torch.topk does not promise it)
+            cut_idx = torch.sort(-sims, descending=True, stable=True).indices[:k]
+            long_boundary[cut_idx + 1] = True
+        long_boundary = long_boundary & frame_mask
+        long_boundary[0] = frame_mask[0]
+        short = n_valid <= max_num_segments + 1
+        boundary = torch.where(short, frame_mask, long_boundary)
+        if sp:
+            sp.set(segments=boundary.sum())
+        return boundary
 
 
 

@@ -52,6 +52,7 @@ import torch
 from ..config import TDCConfig
 from ..device import resolve_device
 from ..models import lm as lm_mod
+from ..utils.profiling import span
 from .generate import inference_params, sample_rows
 
 Params = Any
@@ -219,7 +220,6 @@ class DecodeEngine:
         self.steps = 0  # decode chunks run
         self.prefix_prefills = 0  # full-prefix prefills run
         self.prefill_chunks = 0  # chunked-admission extends run
-        self.chunk_times: List[float] = []  # perf_counter after each harvest
         self.chunk_spans: List[tuple] = []  # (t_dispatch, t_harvested, n_tok)
         self._harvested_last = 0
         if self.spec_window >= 2:
@@ -246,18 +246,21 @@ class DecodeEngine:
 
     def _prefill_one(self, embeds, attn_mask, L: int):
         lm_cfg, lm_p = self._lm()
-        logits, cache1 = lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask, self._new_cache(1, L),
-                                        attn_impl=self.attn_impl, dtype=self.cfg.dtype,
-                                        act_quant=self.act_quant, mesh=self.mesh)
-        return torch.argmax(logits, -1).to(torch.int32), logits, cache1
+        with span("engine.prefill_one", device=True, rows=L):
+            logits, cache1 = lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask, self._new_cache(1, L),
+                                            attn_impl=self.attn_impl, dtype=self.cfg.dtype,
+                                            act_quant=self.act_quant, mesh=self.mesh)
+            return torch.argmax(logits, -1).to(torch.int32), logits, cache1
 
     def _prefill_prefix(self, embeds, attn_mask):
         """Prefill a shared prefix into a batch-1 cache at the engine's full
         capacity, so that suffixes can extend it."""
         lm_cfg, lm_p = self._lm()
-        return lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask, self._new_cache(1, self.capacity),
-                              attn_impl=self.attn_impl, dtype=self.cfg.dtype,
-                              act_quant=self.act_quant, mesh=self.mesh)[1]
+        with span("engine.prefill_prefix", device=True, rows=embeds.shape[1]):
+            return lm_mod.prefill(lm_cfg, lm_p, embeds, attn_mask,
+                                  self._new_cache(1, self.capacity), attn_impl=self.attn_impl,
+                                  dtype=self.cfg.dtype, act_quant=self.act_quant,
+                                  mesh=self.mesh)[1]
 
     def _extend_one(self, suffix_embeds, n_valid: int, cache1: Dict):
         """Extend cache1 (owned by the caller; written in place) by a suffix;
@@ -469,7 +472,9 @@ class DecodeEngine:
         request's suffix (the donor stays as it was, for the next request)."""
         p = req.prefix_len
         n_valid = int(req.mask_host.sum()) - p
-        return self._extend_one(req.embeds[:, p:].to(self.device), n_valid, _copy_cache(donor))
+        with span("engine.extend_suffix", device=True, rows=n_valid):
+            return self._extend_one(req.embeds[:, p:].to(self.device), n_valid,
+                                    _copy_cache(donor))
 
     def _mask_on_device(self, req: Request, n: Optional[int] = None) -> torch.Tensor:
         m = req.mask_host if n is None else req.mask_host[:n]
@@ -481,37 +486,53 @@ class DecodeEngine:
             if slot is None:
                 return
             req = self._queue.pop(0)
-            L = req.embeds.shape[1]
-            if L > self.capacity:
-                raise ValueError(f"prompt length {L} exceeds capacity {self.capacity}")
-            mask = req.mask_host
-            if req.prefix_key is not None and req.prefix_len > 0:
-                p = req.prefix_len
-                if p >= L:
-                    raise ValueError(f"prefix_len {p} >= prompt length {L}: a request must "
-                                     "contribute at least one suffix token")
-                if not bool(mask[:p].all()):
-                    raise ValueError("shared prefix must be fully valid tokens")
-                if int(mask.sum()) - p <= 0:
-                    raise ValueError(f"prompt valid length <= prefix_len {p}: a request must "
-                                     "contribute at least one suffix token")
-                if req.prefix_key not in self._prefixes:
-                    if 0 < self.prefill_chunk < p:
-                        self._start_pending(req, req.prefix_key, p)
-                        return
-                    self._prefixes[req.prefix_key] = self._prefill_prefix(
-                        req.embeds[:, :p].to(self.device), self._mask_on_device(req, p))
-                    self.prefix_prefills += 1
-                first, logits, cache1 = self._extend_suffix(req, self._prefixes[req.prefix_key])
-            else:
-                n = int(mask.sum())
-                # chunked admission feeds the valid head: right-padded masks only
-                if 0 < self.prefill_chunk < n and bool(mask[:n].all()):
-                    self._start_pending(req, None, n)
+            with span("engine.admit", device=True, request=req.uid) as sp:
+                if sp:
+                    sp.set(queue_wait_s=_time.perf_counter() - req.submit_t,
+                           prefix_rows_reused=0, rows_prefilled=0)
+                if not self._admit_one(req, sp):
                     return
-                first, logits, cache1 = self._prefill_one(req.embeds.to(self.device),
-                                                          self._mask_on_device(req), L)
-            self._finish_admission(req, self._first_token(req, first, logits), cache1)
+
+    def _admit_one(self, req: Request, sp) -> bool:
+        """Prefill one request into a slot, or start its chunked prefill
+        (False: admission waits for it).  `sp` is its engine.admit span."""
+        L = req.embeds.shape[1]
+        if L > self.capacity:
+            raise ValueError(f"prompt length {L} exceeds capacity {self.capacity}")
+        mask = req.mask_host
+        if req.prefix_key is not None and req.prefix_len > 0:
+            p = req.prefix_len
+            if p >= L:
+                raise ValueError(f"prefix_len {p} >= prompt length {L}: a request must "
+                                 "contribute at least one suffix token")
+            if not bool(mask[:p].all()):
+                raise ValueError("shared prefix must be fully valid tokens")
+            if int(mask.sum()) - p <= 0:
+                raise ValueError(f"prompt valid length <= prefix_len {p}: a request must "
+                                 "contribute at least one suffix token")
+            reused = p
+            if req.prefix_key not in self._prefixes:
+                if 0 < self.prefill_chunk < p:
+                    self._start_pending(req, req.prefix_key, p)
+                    return False
+                self._prefixes[req.prefix_key] = self._prefill_prefix(
+                    req.embeds[:, :p].to(self.device), self._mask_on_device(req, p))
+                self.prefix_prefills += 1
+                reused = 0
+            first, logits, cache1 = self._extend_suffix(req, self._prefixes[req.prefix_key])
+        else:
+            n = int(mask.sum())
+            # chunked admission feeds the valid head: right-padded masks only
+            if 0 < self.prefill_chunk < n and bool(mask[:n].all()):
+                self._start_pending(req, None, n)
+                return False
+            reused = 0
+            first, logits, cache1 = self._prefill_one(req.embeds.to(self.device),
+                                                      self._mask_on_device(req), L)
+        if sp:
+            sp.set(prefix_rows_reused=reused, rows_prefilled=int(mask.sum()) - reused)
+        self._finish_admission(req, self._first_token(req, first, logits), cache1)
+        return True
 
     def _advance_pending(self):
         """Advance the chunked prefill by one chunk.  The ragged chunk (total
@@ -519,25 +540,30 @@ class DecodeEngine:
         or before `total`: extend_prefill needs lengths + K <= capacity,
         which a padded ragged tail could break near capacity."""
         p = self._pending
-        C = self.prefill_chunk
-        k = (p.total % C or C) if p.pos == 0 else C
-        seg = p.embeds[:, p.pos:p.pos + k].to(self.device)
-        if k < C:
-            seg = torch.cat([seg, seg.new_zeros((1, C - k, seg.shape[2]))], dim=1)
-        p.first, p.first_logits, p.cache1 = self._extend_one(seg, k, p.cache1)
-        p.pos += k
-        self.prefill_chunks += 1
-        if p.pos < p.total:
-            return
-        self._pending = None
-        if p.key is not None:
-            self._prefixes[p.key] = p.cache1
-            self.prefix_prefills += 1
-            first, logits, cache1 = self._extend_suffix(p.req, p.cache1)
-            self._finish_admission(p.req, self._first_token(p.req, first, logits), cache1)
-        else:
-            self._finish_admission(p.req, self._first_token(p.req, p.first, p.first_logits),
-                                   p.cache1)
+        with span("engine.admit", device=True, request=p.req.uid) as sp:
+            C = self.prefill_chunk
+            k = (p.total % C or C) if p.pos == 0 else C
+            seg = p.embeds[:, p.pos:p.pos + k].to(self.device)
+            if k < C:
+                seg = torch.cat([seg, seg.new_zeros((1, C - k, seg.shape[2]))], dim=1)
+            p.first, p.first_logits, p.cache1 = self._extend_one(seg, k, p.cache1)
+            p.pos += k
+            self.prefill_chunks += 1
+            if sp:
+                sp.set(prefix_rows_reused=0, rows_prefilled=k)
+            if p.pos < p.total:
+                return
+            self._pending = None
+            if p.key is not None:
+                self._prefixes[p.key] = p.cache1
+                self.prefix_prefills += 1
+                if sp:
+                    sp.set(rows_prefilled=int(p.req.mask_host.sum()) - p.total + k)
+                first, logits, cache1 = self._extend_suffix(p.req, p.cache1)
+                self._finish_admission(p.req, self._first_token(p.req, first, logits), cache1)
+            else:
+                self._finish_admission(p.req, self._first_token(p.req, p.first, p.first_logits),
+                                       p.cache1)
 
     def _first_token(self, req: Request, greedy_tok, logits) -> int:
         """The first generated token from the prefill logits: the argmax, or
@@ -675,17 +701,23 @@ class DecodeEngine:
                     continue
                 break
             sampled = any(r is not None and r.temperature > 0.0 for r in self._requests)
+            spec = self.spec_window >= 2
+            budget_before = self._budget.copy()
             t0 = _time.perf_counter()
-            if self.spec_window >= 2:
-                es, ms = self._harvest_state(*self._decode_chunk_spec(sampled))
-                self.steps += 1
-                self._harvest_spec(es, ms)
-            else:
-                budget_before = self._budget.copy()
-                (toks,) = self._harvest_state(self._decode_chunk(sampled))
-                self.steps += 1
-                self._harvest(toks, budget_before)
-            self.chunk_times.append(_time.perf_counter())
-            self.chunk_spans.append((t0, self.chunk_times[-1], self._harvested_last))
+            with span("engine.chunk"):
+                with span("engine.dispatch", slots=self.num_slots, tokens=self.chunk_tokens):
+                    outs = self._decode_chunk_spec(sampled) if spec else \
+                        (self._decode_chunk(sampled),)
+                with span("engine.harvest") as sp:
+                    read = self._harvest_state(*outs)
+                    self.steps += 1
+                    if spec:
+                        self._harvest_spec(*read)
+                    else:
+                        self._harvest(read[0], budget_before)
+                    if sp:  # active slot-steps: one token a step; an iteration emits >= 1
+                        sp.set(slot_steps=int((read[1] > 0).sum()) if spec
+                               else self._harvested_last)
+            self.chunk_spans.append((t0, _time.perf_counter(), self._harvested_last))
         out, self._finished = self._finished, []
         return out

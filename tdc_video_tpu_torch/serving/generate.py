@@ -32,6 +32,7 @@ from ..config import TDCConfig
 from ..device import synchronize
 from ..model import prepare_multimodal_from_features, prepare_multimodal_inputs
 from ..models import lm as lm_mod
+from ..utils.profiling import span
 from . import prng
 
 
@@ -225,10 +226,14 @@ def _prompt_len(input_ids: torch.Tensor, text_len: Optional[torch.Tensor]) -> to
 def _decode_from_prefill(cfg, params, input_ids, prompt_len, logits, cache, max_new_tokens,
                          temperature, top_k, top_p, key, attn_impl, spec_window, spec_ngram,
                          mesh=None):
-    first, key = _sample_first(logits, temperature, top_k, top_p, key)
-    return _spec_or_plain_decode(cfg, params, cache, first, input_ids, prompt_len,
-                                 max_new_tokens, temperature, top_k, top_p, key, attn_impl,
-                                 spec_window, spec_ngram, mesh)
+    with span("decode", device=True) as sp:
+        first, key = _sample_first(logits, temperature, top_k, top_p, key)
+        out, steps = _spec_or_plain_decode(cfg, params, cache, first, input_ids, prompt_len,
+                                           max_new_tokens, temperature, top_k, top_p, key,
+                                           attn_impl, spec_window, spec_ngram, mesh)
+        if sp:
+            sp.set(steps=steps)
+        return out, steps
 
 
 def generate(
@@ -347,10 +352,12 @@ def prefill_encoded(
     )
     B = input_ids.shape[0]
     capacity = max_len + max_new_tokens + max(spec_window - 1, 0)
-    cache = lm_mod.init_kv_cache(cfg.lm, B, capacity, dtype=cfg.dtype, device=input_ids.device,
-                                 quant=kv_quant, mesh=mesh)
-    return lm_mod.prefill(cfg.lm, params["lm"], mm["embeds"], mm["attn_mask"], cache,
-                          attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant, mesh=mesh)
+    with span("prefill", device=True, rows=B * mm["embeds"].shape[1]):
+        cache = lm_mod.init_kv_cache(cfg.lm, B, capacity, dtype=cfg.dtype,
+                                     device=input_ids.device, quant=kv_quant, mesh=mesh)
+        return lm_mod.prefill(cfg.lm, params["lm"], mm["embeds"], mm["attn_mask"], cache,
+                              attn_impl=attn_impl, dtype=cfg.dtype, act_quant=act_quant,
+                              mesh=mesh)
 
 
 def generate_encoded(

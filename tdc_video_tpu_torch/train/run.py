@@ -52,7 +52,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                     help="process group backend (default: nccl on CUDA, gloo on the CPU)")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
-                    help="write a torch.profiler trace of the training run into LOGDIR")
+                    help="write a torch.profiler trace of the training run and its spans "
+                         "(trace.json, spans.json) into LOGDIR")
     ap.add_argument("--report_to", default=None, choices=["jsonl", "tensorboard", "none"],
                     help="override the stage preset's metrics sink")
     ap.add_argument("--quantize_frozen", default=None, choices=["int8"],
@@ -141,10 +142,12 @@ def main(argv=None, tokenizer=None):
                             start_step=start_step)
     try:
         if args.profile:
-            from ..utils.profiling import trace
+            from ..utils.profiling import collect, table, trace
 
             with trace(args.profile):
                 trainer.fit(batches)
+            print(f"[profile] the run's spans; trace.json and spans.json -> {args.profile}\n"
+                  f"{table(collect())}", flush=True)
         else:
             trainer.fit(batches)
     finally:

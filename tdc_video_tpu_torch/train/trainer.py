@@ -78,6 +78,7 @@ from ..device import resolve_device
 from ..model import tdc_loss
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, warmup_collectives
 from ..parallel.sharding import local_slice, shard_tree, tdc_param_spec
+from ..utils.profiling import span
 from . import lora as lora_lib
 from .step import (
     GroupedAdamW,
@@ -471,18 +472,24 @@ class Trainer:
         waits for the device, so `fit` reads it only every logging_steps.
         Over a mesh every rank passes the same whole batch and gets the
         whole batch's loss."""
-        b = self._to_device(self._share(self._pad_batch(batch)))
-        loss = self._loss_fn(b)
-        k = max(1, self.tcfg.gradient_accumulation_steps)
-        (loss / k).backward()
-        self.step += 1
-        self._micro += 1
-        if self._micro == k:
-            if self.mesh is not None:
-                self._sync_grads()
-            self.tx.step()
-            self._micro = 0
-        return loss.detach()
+        with span("train.step", root=True, samples=batch["input_ids"].shape[0]):
+            with span("train.batch"):
+                b = self._to_device(self._share(self._pad_batch(batch)))
+            with span("train.forward", device=True):
+                loss = self._loss_fn(b)
+            k = max(1, self.tcfg.gradient_accumulation_steps)
+            with span("train.backward", device=True):
+                (loss / k).backward()
+            self.step += 1
+            self._micro += 1
+            if self._micro == k:
+                if self.mesh is not None:
+                    with span("train.sync_grads", device=True):
+                        self._sync_grads()
+                with span("train.optimizer", device=True):
+                    self.tx.step()
+                self._micro = 0
+            return loss.detach()
 
     # -- logging ------------------------------------------------------------------
 
