@@ -600,25 +600,25 @@ def decode_step(
     """One autoregressive step; writes at per-sample `lengths`, returns logits [B, V].
     `active` (continuous batching, serving/batching.py): inactive slots still
     run through the batched products, and their K/V land on their next,
-    still-masked slot, but their mask and lengths are left as they were."""
-    B = token_embeds.shape[0]
+    still-masked slot, but their mask and lengths are left as they were.
+    The cache's mask and lengths are updated in place, as its K/V are (the
+    engine's chunk graph holds their storage)."""
     S = cache["k"].shape[2]
-    dev = token_embeds.device
     lengths = cache["lengths"]
     positions = lengths[:, None]
     slot = lengths.clamp_max(S - 1).long()
     write_pos = slot[:, None]
-    step_mask = cache["mask"].clone()
-    step_mask[torch.arange(B, device=dev), slot] = True
+    # the scalar fill copies nothing from the host (capturable in a CUDA graph)
+    step_mask = cache["mask"].clone().scatter_(1, slot[:, None], True)
     hidden, cache = lm_backbone(cfg, params, token_embeds, positions, step_mask[:, None, None, :],
                                 cache=cache, write_pos=write_pos, attn_impl=attn_impl,
                                 dtype=dtype, mesh=mesh)
     if active is None:
-        cache["mask"] = step_mask
-        cache["lengths"] = lengths + 1
+        cache["mask"].copy_(step_mask)
+        lengths.add_(1)
     else:
-        cache["mask"] = torch.where(active[:, None], step_mask, cache["mask"])
-        cache["lengths"] = lengths + active.to(lengths.dtype)
+        cache["mask"].copy_(torch.where(active[:, None], step_mask, cache["mask"]))
+        lengths.add_(active.to(lengths.dtype))
     return lm_head(cfg, params, hidden, mesh=mesh)[:, 0], cache
 
 

@@ -23,6 +23,17 @@ the budgets and the cache lengths come back in ONE device-to-host read.
 `active` and `budget` keep host mirrors, refreshed by that read and by
 admission, so that choosing a slot and deciding to stop never sync.
 
+On a card, without a mesh and without speculation, the lockstep chunk is a
+CUDA graph: one per variant (greedy, sampled), captured after the first
+chunk of that variant has run eagerly on a side stream, and replayed for
+every later chunk, so that a chunk costs the host one launch instead of
+the ~1,760 ops a step.  Everything the chunk reads or writes is a buffer
+the engine owns and updates in place: the shared cache (decode_step writes
+its mask and lengths in place), the per-slot tensors (reset() zeroes them
+in place) and the chunk's token buffer.  The eager path runs the same
+in-place code.  Under a mesh the NCCL collectives stay outside graphs, and
+speculative chunks stay eager.
+
 The port's caches are written in place (models/lm.py), where JAX's are
 functional: a stored prefix (donor) is copied before each extend, and
 snapshots are copies, never views of a slot that will be reused.
@@ -194,25 +205,44 @@ class DecodeEngine:
         self.device = resolve_device(device) if mesh is None else mesh.device
         self.cache = self._new_cache(num_slots, capacity)
         self._eos = torch.tensor(cfg.lm.eos_token_ids, dtype=torch.int32, device=self.device)
+        S, dev = num_slots, self.device
+        # per-slot device state, allocated once and updated in place (the
+        # chunk's graphs hold these storages); reset() zeroes it
+        self._budget_dev = torch.zeros(S, dtype=torch.int32, device=dev)
+        self._last_tok = torch.zeros(S, dtype=torch.int32, device=dev)
+        self._active = torch.zeros(S, dtype=torch.bool, device=dev)
+        self._temp = torch.zeros(S, dtype=torch.float32, device=dev)
+        self._topk = torch.zeros(S, dtype=torch.int32, device=dev)
+        self._topp = torch.ones(S, dtype=torch.float32, device=dev)
+        self._seed = torch.zeros(S, dtype=torch.int32, device=dev)
+        self._genidx = torch.zeros(S, dtype=torch.int32, device=dev)
+        self._chunk_out = torch.zeros((S, chunk_tokens), dtype=torch.int32, device=dev)
         if spec_window >= 2:
             # per-slot draft history: prompt ids (<= capacity) + generated
             self._hist_cap = capacity + spec_window + 1
+            self._hist = torch.zeros((S, self._hist_cap), dtype=torch.int32, device=dev)
+            self._hist_len = torch.zeros(S, dtype=torch.int32, device=dev)
+        # the chunk's CUDA graphs by variant (sampled: bool), kept across
+        # reset(); None where chunks run eagerly.  The counts are over the
+        # engine's life
+        graphed = self.device.type == "cuda" and mesh is None and spec_window < 2
+        self._graphs: Optional[Dict[bool, Any]] = {} if graphed else None
+        self.graph_captures = 0  # chunk graphs captured
+        self.graph_replays = 0  # chunks run by replaying one
         self.reset(on_tokens)
 
     def reset(self, on_tokens=None):
         """Clear the per-run request state so that the engine serves a new
         batch (answer_many reuses engines by shape).  The KV buffers stay:
         slot reads are length-masked, so a previous run's rows are
-        unreachable."""
-        S, dev = self.num_slots, self.device
+        unreachable.  The per-slot device tensors are zeroed in place, so
+        that the chunk's graphs read live buffers."""
+        S = self.num_slots
         self._pending: Optional[_PendingPrefill] = None
         self._requests: List[Optional[Request]] = [None] * S
         self._budget = np.zeros(S, np.int32)  # host mirror of _budget_dev
         self._active_host = np.zeros(S, bool)  # host mirror of _active
         self._lengths = np.zeros(S, np.int64)  # cache lengths at the last harvest
-        self._budget_dev = torch.zeros(S, dtype=torch.int32, device=dev)
-        self._last_tok = torch.zeros(S, dtype=torch.int32, device=dev)
-        self._active = torch.zeros(S, dtype=torch.bool, device=dev)
         self._queue: List[Request] = []
         self._finished: List[Request] = []
         self._prefixes: Dict[Any, Dict] = {}  # prefix_key -> batch-1 donor cache
@@ -222,14 +252,13 @@ class DecodeEngine:
         self.prefill_chunks = 0  # chunked-admission extends run
         self.chunk_spans: List[tuple] = []  # (t_dispatch, t_harvested, n_tok)
         self._harvested_last = 0
+        state = [self._budget_dev, self._last_tok, self._active, self._temp, self._topk,
+                 self._seed, self._genidx]
         if self.spec_window >= 2:
-            self._hist = torch.zeros((S, self._hist_cap), dtype=torch.int32, device=dev)
-            self._hist_len = torch.zeros(S, dtype=torch.int32, device=dev)
-        self._temp = torch.zeros(S, dtype=torch.float32, device=dev)
-        self._topk = torch.zeros(S, dtype=torch.int32, device=dev)
-        self._topp = torch.ones(S, dtype=torch.float32, device=dev)
-        self._seed = torch.zeros(S, dtype=torch.int32, device=dev)
-        self._genidx = torch.zeros(S, dtype=torch.int32, device=dev)
+            state += [self._hist, self._hist_len]
+        for x in state:
+            x.zero_()
+        self._topp.fill_(1.0)
         self.on_tokens = on_tokens
         self.on_tokens_errors: List[Exception] = []
 
@@ -280,29 +309,62 @@ class DecodeEngine:
                                                 active=active, mesh=self.mesh)
         return logits
 
-    def _decode_chunk(self, sampled: bool):
+    def _decode_chunk(self, sampled: bool) -> torch.Tensor:
         """chunk_tokens lockstep steps over all slots, greedy or sampled
         (greedy rows of a sampled chunk take the same argmax).  Returns the
-        tokens [slots, chunk] on the device."""
+        tokens [slots, chunk] on the device (the engine's buffer, which the
+        next chunk overwrites).  With graphs: the variant's first chunk runs
+        eagerly and is captured, every later one is a replay."""
+        if self._graphs is None:
+            self._chunk_steps(sampled)
+        elif sampled in self._graphs:
+            self._graphs[sampled].replay()
+            self.graph_replays += 1
+        else:
+            self._capture(sampled)
+        return self._chunk_out
+
+    def _capture(self, sampled: bool):
+        """Run one chunk eagerly on a side stream (its warm-up, and this
+        chunk's work), then capture the chunk as a CUDA graph on that stream
+        (torch.cuda.graphs' order); the capture runs nothing.  The capture
+        calls capture_begin/end itself: torch.cuda.graph's context would
+        also synchronize, collect garbage and empty the allocator's cache,
+        which only frees memory."""
+        cur, side = torch.cuda.current_stream(self.device), torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self._chunk_steps(sampled)
+            g.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._chunk_steps(sampled)
+            finally:
+                g.capture_end()
+        cur.wait_stream(side)
+        self._graphs[sampled] = g
+        self.graph_captures += 1
+
+    def _chunk_steps(self, sampled: bool):
+        """The chunk's steps, every write in place into the engine's
+        buffers: the cache, the per-slot tensors and the token buffer."""
         pad = self.cfg.lm.pad_token_id
-        tok, active, budget = self._last_tok, self._active, self._budget_dev
-        outs = []
-        for _ in range(self.chunk_tokens):
+        tok, active, budget, out = self._last_tok, self._active, self._budget_dev, self._chunk_out
+        for i in range(self.chunk_tokens):
             logits = self._step(tok, active)
+            stepped = active.to(torch.int32)
             if sampled:
                 nxt = sample_rows(logits, self._temp, self._topk, self._topp, self._seed,
                                   self._genidx)
-                self._genidx = self._genidx + active.to(torch.int32)
+                self._genidx.add_(stepped)
             else:
                 nxt = torch.argmax(logits, -1).to(torch.int32)
             nxt = torch.where(active, nxt, pad)
-            budget = budget - active.to(torch.int32)
+            budget.sub_(stepped)
             hit_eos = (nxt[:, None] == self._eos[None]).any(-1)
-            active = active & ~hit_eos & (budget > 0)
-            tok = torch.where(active | hit_eos, nxt, tok)
-            outs.append(nxt)
-        self._last_tok, self._active, self._budget_dev = tok, active, budget
-        return torch.stack(outs, dim=1)
+            active.logical_and_(~hit_eos & (budget > 0))
+            tok.copy_(torch.where(active | hit_eos, nxt, tok))
+            out[:, i] = nxt
 
     def _decode_chunk_spec(self, sampled: bool):
         """chunk_tokens speculative steps: one K-token verify forward over
@@ -704,8 +766,10 @@ class DecodeEngine:
             spec = self.spec_window >= 2
             budget_before = self._budget.copy()
             t0 = _time.perf_counter()
+            graph = self._graphs is not None and sampled in self._graphs
             with span("engine.chunk"):
-                with span("engine.dispatch", slots=self.num_slots, tokens=self.chunk_tokens):
+                with span("engine.dispatch", slots=self.num_slots, tokens=self.chunk_tokens,
+                          graph=int(graph)):
                     outs = self._decode_chunk_spec(sampled) if spec else \
                         (self._decode_chunk(sampled),)
                 with span("engine.harvest") as sp:

@@ -56,7 +56,10 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
 def PRNGKey(seed: Union[int, torch.Tensor], device=None) -> torch.Tensor:
     """jax.random.PRNGKey of a 32-bit seed: [0, seed mod 2**32]; a tensor
     of seeds gives a key per seed ([..., 2])."""
-    s = torch.as_tensor(seed, dtype=torch.int64, device=device) & _M32
+    if isinstance(seed, int):  # a fill, not a host-to-device copy: capturable in a CUDA graph
+        s = torch.full((), seed & _M32, dtype=torch.int64, device=device)
+    else:
+        s = torch.as_tensor(seed, dtype=torch.int64, device=device) & _M32
     return torch.stack([torch.zeros_like(s), s], dim=-1)
 
 
@@ -98,8 +101,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval: float = 0.0,
     at minval, in f32 as XLA computes it."""
     bits = random_bits(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

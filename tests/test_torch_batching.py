@@ -420,3 +420,95 @@ def test_no_request_stranded_under_adversarial_stream(setup, mode):
             assert r.cancelled and r.tokens == []
         elif i % 5 == 1:
             assert r.timed_out and r.tokens == []
+
+
+# -- the chunk's state stays in place (the card replays it from a CUDA graph) --
+
+_SLOT_STATE = ("_last_tok", "_active", "_budget_dev", "_temp", "_topk", "_topp", "_seed",
+               "_genidx", "_chunk_out")
+
+_GROUPS = {  # engine keyword arguments of each scenario
+    "two_groups": dict(num_slots=2, capacity=64, chunk_tokens=3),
+    "admit_between_chunks": dict(num_slots=2, capacity=64, chunk_tokens=2),
+    "cancel": dict(num_slots=2, capacity=64, chunk_tokens=2),
+    "chunked": dict(num_slots=2, capacity=64, chunk_tokens=2, prefill_chunk=4),
+}
+
+
+def _group(eng, tp, scenario, seed):
+    """One group of requests through `eng`: greedy and sampled rows mixed;
+    `admit_between_chunks` submits a request from the first harvest, `cancel`
+    cancels one in flight there.  Returns {uid: (tokens, cancelled)}."""
+    prompts = _prompts(200 + seed, 3, 5, 21 if scenario == "chunked" else 12)
+    specs = [dict(uid="a"), dict(uid="b", **_sampled(seed)), dict(uid="c")]
+    late = scenario == "admit_between_chunks"
+    hooked = {"done": False}
+
+    def on_tokens(req, new):
+        if req.uid != "a" or len(req.tokens) < 2 or hooked["done"]:
+            return
+        hooked["done"] = True
+        if late:
+            eng.submit(_req(tp, prompts[2], 7, **specs[2]))
+        elif scenario == "cancel":
+            assert eng.cancel("b")
+
+    eng.on_tokens = on_tokens
+    for ids, kw in list(zip(prompts, specs))[:2 if late else 3]:
+        eng.submit(_req(tp, ids, 7 if late else 9, **kw))
+    done = {r.uid: (list(r.tokens), r.cancelled) for r in eng.run()}
+    assert hooked["done"] and len(done) == 3
+    return done
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16_kv", "int8_kv"])
+def test_chunk_state_keeps_its_storage(setup, kv):
+    """The cache (mask and lengths too) and the per-slot tensors keep their
+    storage through chunks, a reset and a second group: a graph captured
+    over them stays valid.  On the CPU every chunk runs eagerly."""
+    tp = setup[1]
+    eng = _engine(tp, kv_quant=kv, **_GROUPS["two_groups"])
+
+    def ptrs():
+        return ({k: v.data_ptr() for k, v in eng.cache.items()}
+                | {n: getattr(eng, n).data_ptr() for n in _SLOT_STATE})
+
+    before = ptrs()
+    _group(eng, tp, "two_groups", 0)
+    assert ptrs() == before and eng.steps > 0
+    eng.reset()
+    assert ptrs() == before
+    assert not bool(eng._active.any()) and bool((eng._topp == 1).all())
+    _group(eng, tp, "two_groups", 1)
+    assert ptrs() == before
+    assert eng._graphs is None and eng.graph_captures == eng.graph_replays == 0
+
+
+@pytest.mark.parametrize("scenario", list(_GROUPS))
+def test_reused_engine_matches_fresh(setup, scenario):
+    """An engine reset between two groups gives each group the tokens a
+    fresh engine gives it: across admission between chunks, cancellation
+    in flight and chunked admission, greedy and sampled rows mixed."""
+    tp = setup[1]
+    kw = _GROUPS[scenario]
+    eng = _engine(tp, **kw)
+    first = _group(eng, tp, scenario, 0)
+    eng.reset()
+    second = _group(eng, tp, scenario, 1)
+    assert first == _group(_engine(tp, **kw), tp, scenario, 0)
+    assert second == _group(_engine(tp, **kw), tp, scenario, 1)
+    if scenario == "cancel":
+        assert first["b"][1] and second["b"][1]
+
+
+def test_eager_chunks_marked_in_dispatch_spans(setup):
+    """Each engine.dispatch span says whether its chunk replayed a graph:
+    0 for every chunk on the CPU."""
+    from tdc_video_tpu_torch.utils import profiling as P
+
+    tp = setup[1]
+    eng = _engine(tp, **_GROUPS["two_groups"])
+    with P.recording():
+        _group(eng, tp, "two_groups", 0)
+    got = [s["attrs"]["graph"] for s in P.collect()["spans"] if s["name"] == "engine.dispatch"]
+    assert got == [0] * eng.steps and eng.steps > 0

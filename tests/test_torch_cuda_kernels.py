@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+DecodeEngine's lockstep chunk replayed from a CUDA graph against the same
+engine run eagerly.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -566,3 +568,137 @@ def test_offset_blocks_sum_to_whole_backward(cuda):
     torch.cuda.synchronize()
     _close(dks, dk, 1e-4)
     _close(dvs, dv, 1e-4)
+
+
+# DecodeEngine's lockstep chunk replayed from a CUDA graph (serving/batching.py)
+# against the same engine run eagerly on the card: a small bf16 Qwen2-style
+# LM (GQA, q/k/v biases) whose decode products go through cuBLAS
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _engine_model():
+    import dataclasses
+
+    from tdc_video_tpu_torch import config as tc
+    from tdc_video_tpu_torch.models import lm as tlm
+
+    cfg = tc.tdc_tiny()
+    lm = dataclasses.replace(cfg.lm, vocab_size=4096, hidden_size=512, num_layers=4, num_heads=8,
+                             num_kv_heads=2, head_dim=64, intermediate_size=1408)
+    cfg = dataclasses.replace(cfg, lm=lm, dtype=torch.bfloat16)
+    params = tlm.init_lm(lm, torch.Generator().manual_seed(0), device="cpu", dtype=torch.bfloat16)
+    return cfg, {"lm": _tree_to(params, "cuda")}
+
+
+def _engine_group(eng, cfg, params, seed, sampled):
+    """Two requests, a third submitted from the first harvest and the second
+    cancelled there; returns {uid: (tokens, cancelled)}."""
+    from tdc_video_tpu_torch.models import lm as tlm
+    from tdc_video_tpu_torch.serving.batching import Request
+
+    rng = np.random.default_rng(seed)
+
+    def req(uid, n, i):
+        ids = torch.from_numpy(rng.integers(2, cfg.lm.vocab_size, (1, n))).to(eng.device)
+        kw = dict(temperature=[0.8, 1.2, 0.0][i], top_k=[40, 0, 0][i], top_p=[1.0, 0.9, 1.0][i],
+                  seed=seed + i) if sampled else {}
+        return Request(embeds=tlm.embed_tokens(cfg.lm, params["lm"], ids, cfg.dtype),
+                       attn_mask=np.ones((1, n), bool), max_new_tokens=24, uid=uid, **kw)
+
+    hooked = {"done": False}
+
+    def on_tokens(r, new):
+        if r.uid == "a" and len(r.tokens) >= 5 and not hooked["done"]:
+            hooked["done"] = True
+            eng.submit(req("c", 11, 2))
+            assert eng.cancel("b")
+
+    eng.on_tokens = on_tokens
+    eng.submit(req("a", 17, 0))
+    eng.submit(req("b", 9, 1))
+    done = {r.uid: (list(r.tokens), r.cancelled) for r in eng.run()}
+    assert hooked["done"] and done["b"][1]
+    return done
+
+
+def _logit_recorder(eng):
+    """Each step's logits into a buffer the chunk writes (captured with it on
+    the graphed engine), copied out at each harvest."""
+    buf = torch.zeros((eng.chunk_tokens, eng.num_slots, eng.cfg.lm.vocab_size),
+                      dtype=torch.float32, device="cuda")
+    step, harvest, seen, chunks = eng._step, eng._harvest_state, [0], []
+
+    def rec_step(tok, active):
+        logits = step(tok, active)
+        buf[seen[0] % eng.chunk_tokens].copy_(logits)
+        seen[0] += 1
+        return logits
+
+    def rec_harvest(*outs):
+        chunks.append(buf.clone())
+        return harvest(*outs)
+
+    eng._step, eng._harvest_state = rec_step, rec_harvest
+    return chunks
+
+
+@pytest.mark.parametrize("kv,sampled", [(None, (False, False)), (None, (True, False)),
+                                        ("int8", (False, True))],
+                         ids=["greedy", "sampled_then_greedy", "int8_kv"])
+def test_engine_chunk_graph_bitwise_eager(cuda, kv, sampled):
+    """Two groups (reset between) with admission and cancellation between
+    chunks: every step's logits, every token and the whole KV cache of the
+    graphed engine bitwise equal to the eager one's; one capture per variant
+    used, every later chunk a replay."""
+    from tdc_video_tpu_torch.serving.batching import DecodeEngine
+
+    cfg, params = _engine_model()
+    engines, logits, tokens = [], [], []
+    for graphed in (True, False):
+        eng = DecodeEngine(cfg, params, num_slots=2, capacity=128, chunk_tokens=4, kv_quant=kv,
+                           device="cuda")
+        if not graphed:
+            eng._graphs = None  # the eager path on the card
+        chunks = _logit_recorder(eng)
+        got, steps = [], 0
+        for g, s in enumerate(sampled):
+            if g:
+                eng.reset()
+            got.append(_engine_group(eng, cfg, params, 7 + g, s))
+            steps += eng.steps
+        torch.cuda.synchronize()
+        engines.append((eng, steps))
+        logits.append(chunks)
+        tokens.append(got)
+    (geng, gsteps), (eeng, esteps) = engines
+    assert tokens[0] == tokens[1] and gsteps == esteps == len(logits[0]) == len(logits[1])
+    for i, (a, b) in enumerate(zip(*logits)):
+        assert torch.equal(a, b), f"chunk {i}: logits differ by {float((a - b).abs().max())}"
+    for k in geng.cache:
+        assert torch.equal(geng.cache[k], eeng.cache[k]), k
+    assert set(geng._graphs) == set(sampled) and geng.graph_captures == len(set(sampled))
+    assert geng.graph_replays == gsteps - geng.graph_captures > 0
+    assert eeng.graph_captures == eeng.graph_replays == 0
+
+
+def test_engine_graphs_only_plain_card_chunks(cuda):
+    """A speculative engine on the card and an engine on the CPU run every
+    chunk eagerly and never capture."""
+    from tdc_video_tpu_torch.serving.batching import DecodeEngine
+
+    cfg, params = _engine_model()
+    spec = DecodeEngine(cfg, params, num_slots=2, capacity=128, chunk_tokens=4, spec_window=3,
+                        device="cuda")
+    assert spec._graphs is None
+    _engine_group(spec, cfg, params, 3, False)
+    cpu_params = _tree_to(params, "cpu")
+    cpu = DecodeEngine(cfg, cpu_params, num_slots=2, capacity=128, chunk_tokens=4, device="cpu")
+    assert cpu._graphs is None
+    _engine_group(cpu, cfg, cpu_params, 3, False)
+    for eng in (spec, cpu):
+        assert eng.steps > 0 and eng.graph_captures == eng.graph_replays == 0
