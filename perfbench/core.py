@@ -1,6 +1,7 @@
-"""The harness core: the manifest and the files it names, the guard against
-JAX, percentiles, the device line, and the reduction of a torch.profiler
-trace to busy time, idle gaps and kernel times.
+"""The harness core: the manifest and the files it names (a decoder family's
+among them), the guard against JAX, percentiles, the device line, and the
+reduction of a torch.profiler trace to busy time, idle gaps and kernel
+times.
 
 Nothing here imports the port; drivers do, once run.py has checked the card.
 """
@@ -60,6 +61,21 @@ def load_module(path: Path):
 
 def metric_reader(name: str):
     return load_module(HERE / "metrics" / f"{name}.py")
+
+
+# where a decoder family's file is found by its name
+LM_DIR = HERE / "lm"
+_FAMILIES: Dict[Path, object] = {}
+
+
+def lm_family(model):
+    """perfbench/lm/<model.lm.name>.py, loaded once a process: everything
+    the harness knows of the configuration's decoder (its parameter tree,
+    LoRA factors, reference passes and FLOPs)."""
+    path = LM_DIR / f"{model.lm.name}.py"
+    if path not in _FAMILIES:
+        _FAMILIES[path] = load_module(path)
+    return _FAMILIES[path]
 
 
 def driver(kind: str):

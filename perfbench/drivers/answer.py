@@ -29,8 +29,13 @@ class Driver:
         self.workload, self.cfile, self.mix, self.seed = workload, cfile, mix, int(seed)
         self.device = torch.device(device)
         self.system = system
-        self.tok = traffic.QwenByteTokenizer()
         self.setup_parts: Dict[str, float] = {}
+
+    @property
+    def tok(self):
+        """The configuration's tokenizer: the one System holds beside the
+        sizes, which the `flops` counts read too."""
+        return self.system.model.tokenizer
 
     # -- set-up ---------------------------------------------------------------
 
@@ -166,7 +171,7 @@ def flops(model, rec) -> float:
     chunks = R.chunks_of(rec["cuts"][0], c.chunk_size)
     side = int(model.sva.image_token_len ** 0.5)
     valid, _ = R.token_layout(side, rec["hw"][0], rec["hw"][1], c.context_token_num)
-    ids, _ = ref_check.prompt_ids(traffic.QwenByteTokenizer(), rec["question"])
+    ids, _ = ref_check.prompt_ids(model.tokenizer, rec["question"])
     n_vis = R.visual_count(chunks, int(valid.sum()), c.context_token_num,
                            ref_check.sizes(model, ids, rec["frames"])["max_visual"])
     rows = len(ids) - 1 + n_vis

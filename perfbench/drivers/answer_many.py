@@ -106,11 +106,13 @@ def flops(model, rec) -> float:
     """Model FLOPs of one group: the towers once, each question's
     compression, the prefix every prompt shares (the template head, the
     visual tokens and the newline after them) prefilled once, each
-    question's suffix over it and each decode step (perfbench/flops.py)."""
+    question's suffix over it and each decode step (perfbench/flops.py; the
+    decoder's count from its family, perfbench/lm/)."""
     from perfbench import flops as Fl
     from perfbench.reference import model as R
 
     c, lc = model.compression, model.lm
+    lm = core.lm_family(model)
     H, K = lc.hidden_size, c.context_token_num
     side = int(model.sva.image_token_len ** 0.5)
     valid, _ = R.token_layout(side, rec["hw"][0], rec["hw"][1], K)
@@ -119,7 +121,7 @@ def flops(model, rec) -> float:
     f += Fl.sva(model.sva, (model.siglip.hidden_size, model.dino.hidden_size), H, rec["frames"])
     prefix = None
     for q, cuts, toks in zip(rec["questions"], rec["cuts"], rec["tokens"]):
-        ids, img = ref_check.prompt_ids(traffic.QwenByteTokenizer(), q)
+        ids, img = ref_check.prompt_ids(model.tokenizer, q)
         chunks = R.chunks_of(cuts, c.chunk_size)
         n_vis = R.visual_count(chunks, n_valid, K, ref_check.sizes(model, ids, rec["frames"])["max_visual"])
         f += len(chunks) * Fl.mm(K, H, model.qformer.hidden_size)
@@ -127,8 +129,8 @@ def flops(model, rec) -> float:
         rows = len(ids) - 1 + n_vis
         if prefix is None:
             prefix = img + n_vis + 1
-            f += Fl.lm(lc, prefix, logits_rows=0)
-        f += Fl.lm(lc, rows - prefix, prefix)
+            f += lm.forward_flops(lc, prefix, logits_rows=0)
+        f += lm.forward_flops(lc, rows - prefix, prefix)
         for i in range(1, len(toks)):
-            f += Fl.lm(lc, 1, rows + i - 1)
+            f += lm.forward_flops(lc, 1, rows + i - 1)
     return f

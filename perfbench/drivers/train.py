@@ -4,11 +4,12 @@ gradient_accumulation_steps micro-steps.
 
 Set-up builds the trainer once (the frozen bf16 base the benchmark made from
 the seed, float32 copies of the trainable modules, LoRA factors made from the
-seed), makes the cell's pool of samples, and drives that same trainer
-through its first optimizer steps, which warm every shape up; their losses,
-the first step's clipped gradient (from AdamW's first moment) and the
-trainable leaves' change are kept for the reference.  The window goes on
-with the same trainer, through whole optimizer steps.
+seed in the decoder family's `lora_spec`), makes the cell's pool of samples,
+and drives that same trainer through its first optimizer steps, which warm
+every shape up; their losses, the first step's clipped gradient (from
+AdamW's first moment) and the trainable leaves' change are kept for the
+reference.  The window goes on with the same trainer, through whole
+optimizer steps.
 
 Mix parameters: frames (a cycle of frame counts, each with as many seconds of
 audio), text_tokens (a cycle), height, width, cut_min, cut_max,
@@ -41,17 +42,6 @@ from perfbench.system import System
 FROZEN = ("lm", "siglip", "dino", "beats")
 
 
-def lora_spec(lc, rank: int) -> dict:
-    """The LoRA factors of every decoder projection, stacked over layers: A
-    normal(0, 0.02), B zero (training starts from the base model)."""
-    H, Fd, L = lc.hidden_size, lc.intermediate_size, lc.num_layers
-    qd, kvd = lc.num_heads * lc.head_dim, lc.num_kv_heads * lc.head_dim
-    shapes = {"q_proj": (H, qd), "k_proj": (H, kvd), "v_proj": (H, kvd), "o_proj": (qd, H),
-              "mlp/gate": (H, Fd), "mlp/up": (H, Fd), "mlp/down": (Fd, H)}
-    return {f"layers/{k}/w": {"a": ("n", (L, i, rank), 0.02), "b": ("z", (L, rank, o), 0.0)}
-            for k, (i, o) in shapes.items()}
-
-
 class Driver(AnswerDriver):
     def setup(self):
         t = time.perf_counter()
@@ -71,8 +61,9 @@ class Driver(AnswerDriver):
         self.tcfg = dataclasses.replace(
             stage3_audio_lora(os.path.join(os.environ.get("TMPDIR", tempfile.gettempdir()), "perfbench")),
             report_to="none", **m.get("train_config", {}))
-        self.lora0 = weights.make(lora_spec(self.system.model.lm, self.tcfg.lora_r), self.seed + 1,
-                                  self.device, torch.float32)
+        model = self.system.model
+        self.lora0 = weights.make(core.lm_family(model).lora_spec(model.lm, self.tcfg.lora_r),
+                                  self.seed + 1, self.device, torch.float32)
         trainable = {k: _map(v, lambda x: x.detach().float().clone())
                      for k, v in self.system.params.items() if k not in FROZEN}
         params = {**{k: v for k, v in self.system.params.items() if k in FROZEN}, **trainable}

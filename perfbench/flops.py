@@ -10,6 +10,8 @@ backward: q, k, v, dO, lse and delta read, dQ, dK and dV written.
 
 from __future__ import annotations
 
+from . import core
+
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 bandwidth
 # (at the 700 W power limit; the run reports the card's own limit beside).
 PEAK_FLOPS = 989e12
@@ -82,31 +84,20 @@ def qformer_pair(qc, K: int, enc_tokens: int, H: int) -> float:
     return qc.num_layers * (self_attn + ffn) + n_cross * cross + mm(K, d, H)
 
 
-def lm_layer_params(lc) -> int:
-    qd, kvd = lc.num_heads * lc.head_dim, lc.num_kv_heads * lc.head_dim
-    return lc.hidden_size * (2 * qd + 2 * kvd) + 3 * lc.hidden_size * lc.intermediate_size
-
-
-def lm(lc, rows: int, ctx: int = 0, logits_rows: int = 1) -> float:
-    """Forward of `rows` new positions after `ctx` cached ones, with the head
-    over `logits_rows` of them."""
-    attn = 4 * lc.head_dim * lc.num_heads * attn_pairs(rows, ctx + rows, True, ctx)
-    return (lc.num_layers * (2.0 * rows * lm_layer_params(lc) + attn)
-            + mm(logits_rows, lc.hidden_size, lc.vocab_size))
-
-
 def answer(cfg, frames: int, chunks: int, valid_tokens: int, prompt_rows: int,
            new_tokens: int) -> float:
     """One request: towers, SVA, compression (a query_proj per chunk, the
-    Q-Former per later frame), the prefill and each decode step."""
+    Q-Former per later frame), the prefill and each decode step (the
+    decoder's count from its family, perfbench/lm/)."""
+    lm = core.lm_family(cfg)
     H, K = cfg.lm.hidden_size, cfg.compression.context_token_num
     f = vit(cfg.siglip, frames) + vit(cfg.dino, frames)
     f += sva(cfg.sva, (cfg.siglip.hidden_size, cfg.dino.hidden_size), H, frames)
     f += chunks * mm(K, H, cfg.qformer.hidden_size)
     f += (frames - chunks) * qformer_pair(cfg.qformer, K, valid_tokens, H)
-    f += lm(cfg.lm, prompt_rows)
+    f += lm.forward_flops(cfg.lm, prompt_rows)
     for i in range(1, new_tokens):
-        f += lm(cfg.lm, 1, prompt_rows + i - 1)
+        f += lm.forward_flops(cfg.lm, 1, prompt_rows + i - 1)
     return f
 
 
@@ -148,10 +139,8 @@ def beats(bc, windows: int) -> float:
 def train_sample(cfg, frames: int, chunks, rows: int, lora_rank: int = 128) -> float:
     """One stage-3 micro-step: the frozen towers and BEATs forward; the SVA,
     compression and audio_proj forward and backward (input and weight
-    gradients: 3x forward); the decoder forward and its input gradients
-    (2x its products, 12 D a visible pair in attention), LoRA's factors 3x,
-    and the head over the sequence's rows (2x).  Recomputation is not
-    counted."""
+    gradients: 3x forward); the decoder with its LoRA factors and head
+    (its family's `train_flops`).  Recomputation is not counted."""
     lc, c = cfg.lm, cfg.compression
     H, K = lc.hidden_size, c.context_token_num
     f = vit(cfg.siglip, frames) + vit(cfg.dino, frames) + beats(cfg.beats, -(-frames // 10))
@@ -163,10 +152,4 @@ def train_sample(cfg, frames: int, chunks, rows: int, lora_rank: int = 128) -> f
     trained += n_chunks * mm(K, H, cfg.qformer.hidden_size)
     trained += (frames - n_chunks) * qformer_pair(cfg.qformer, K, enc, H)
     f += 3 * trained
-    qd, kvd = lc.num_heads * lc.head_dim, lc.num_kv_heads * lc.head_dim
-    lora = sum(mm(rows, i, lora_rank) + mm(rows, lora_rank, o) for i, o in (
-        (H, qd), (H, kvd), (H, kvd), (qd, H), (H, lc.intermediate_size), (H, lc.intermediate_size),
-        (lc.intermediate_size, H)))
-    attn = 12 * lc.head_dim * lc.num_heads * attn_pairs(rows, rows, True)
-    f += lc.num_layers * (2 * 2.0 * rows * lm_layer_params(lc) + attn + 3 * lora)
-    return f + 2 * mm(rows, H, lc.vocab_size)
+    return f + core.lm_family(cfg).train_flops(lc, rows, lora_rank)

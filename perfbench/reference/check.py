@@ -19,6 +19,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import core
 from . import model as R
 
 SYSTEM = "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
@@ -97,12 +98,14 @@ def visual_tokens(m, params, frames: np.ndarray, port_cuts: Optional[np.ndarray]
 
 def logits_over(m, params, prompt: torch.Tensor, tokens: Sequence[int], P: R.Prec = R.F32):
     """Decoder logits [len(tokens), V] for each served token's position:
-    the prompt's last row, then each served token but the last fed back."""
+    the prompt's last row, then each served token but the last fed back
+    (the decoder of the configuration's family)."""
+    lm = core.lm_family(m)
     if len(tokens) > 1:
-        prompt = torch.cat([prompt, R.embed(m.lm, params["lm"], list(tokens[:-1]), P)])
+        prompt = torch.cat([prompt, lm.embed(m.lm, params["lm"], list(tokens[:-1]), P)])
     n0 = prompt.shape[0] - (len(tokens) - 1)
     rows = torch.arange(n0 - 1, n0 - 1 + len(tokens), device=prompt.device)
-    return R.decoder_logits(m.lm, params["lm"], prompt, rows, P)
+    return lm.logits(m.lm, params["lm"], prompt, rows, P)
 
 
 def token_gaps(logits: torch.Tensor, tokens: Sequence[int], eos_last: bool, eos_ids) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Plain PyTorch reference of TDC-Video inference, written from the model's
 description and independent of the port: frames -> tower preprocessing ->
 SigLIP and DINOv2 -> SVA -> newline -> scene cuts -> TDC compression with
-the Q-Former -> splice into the prompt -> Qwen2 decoder -> logits.
+the Q-Former -> splice into the prompt -> the decoder -> logits (the
+decoder from its family's file, perfbench/lm/<model.lm.name>.py, which
+builds on `lin`, `rms`, `rope`, `attend`, `layer` and `Prec` here).
 
 It reads the same parameter tree the port serves (bf16, the benchmark makes
 it from the seed) and widens each weight where it is used, so that the
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from .. import core
 
 
 def namespace(d):
@@ -427,7 +431,7 @@ def compress(cfg, p, frame_tokens: torch.Tensor, chunks: List[List[int]], valid:
     return torch.cat(outs)[:max_visual]
 
 
-# --- the decoder ----------------------------------------------------------
+# --- the decoder (its family's file, perfbench/lm/, runs it) -------------
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """Half-rotation rotary embedding of x [1, N, H, D] at positions pos [N]."""
@@ -439,38 +443,10 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return (x.float() * cos + torch.cat([-x2, x1], -1).float() * sin).to(x.dtype)
 
 
-def decoder_logits(lc, p, embeds: torch.Tensor, rows: torch.Tensor, P: Prec = F32) -> torch.Tensor:
-    """Causal forward of one sequence embeds [N, H] at positions 0..N-1;
-    float32 logits [len(rows), V] at the given rows."""
-    N = embeds.shape[0]
-    x = embeds.to(P.dtype)[None]
-    pos = torch.arange(N, device=x.device)
-    hd = lc.head_dim
-    for i in range(lc.num_layers):
-        lp = layer(p["layers"], i)
-        h = rms(lp["input_norm"], x, lc.rms_norm_eps, P)
-        q = rope(lin(lp["q_proj"], h, P).reshape(1, N, lc.num_heads, hd), pos, lc.rope_theta)
-        k = rope(lin(lp["k_proj"], h, P).reshape(1, N, lc.num_kv_heads, hd), pos, lc.rope_theta)
-        v = lin(lp["v_proj"], h, P).reshape(1, N, lc.num_kv_heads, hd)
-        x = x + lin(lp["o_proj"], attend(q, k, v, causal_from=0).reshape(1, N, -1), P)
-        h = rms(lp["post_attn_norm"], x, lc.rms_norm_eps, P)
-        m = lp["mlp"]
-        x = x + lin(m["down"], F.silu(lin(m["gate"], h, P)) * lin(m["up"], h, P), P)
-    h = rms(p["final_norm"], x[0, rows], lc.rms_norm_eps, P)
-    head = p["embed"]["embedding"].T if lc.tie_word_embeddings else p["lm_head"]["w"]
-    return (h @ P.w(head)).float()
-
-
-def embed(lc, p, ids, P: Prec = F32) -> torch.Tensor:
-    table = p["embed"]["embedding"]
-    idx = torch.as_tensor(ids, device=table.device).long().clamp(0, table.shape[0] - 1)
-    return P.v(table[idx])
-
-
 def spliced_prompt(cfg, params, ids: Sequence[int], image_pos: int, visual: torch.Tensor,
                    P: Prec = F32) -> torch.Tensor:
     """The prompt's embeddings with the visual tokens in place of <image>."""
-    e = embed(cfg.lm, params["lm"], ids, P)
+    e = core.lm_family(cfg).embed(cfg.lm, params["lm"], ids, P)
     return torch.cat([e[:image_pos], visual.to(P.dtype), e[image_pos + 1:]])
 
 

@@ -8,7 +8,9 @@ and B of every decoder projection (y = x W + (x A) (B alpha / r)), the SVA,
 the compressor, the newline embedding and audio_proj.  The decoder and the
 SVA are recomputed in the backward (checkpoints per layer and per block of
 frames), as memory demands; the loss is the mean cross-entropy of the
-labelled next tokens, its head applied in chunks of rows.
+labelled next tokens, its head applied in chunks of rows.  The decoder's
+pass and loss are its family's (perfbench/lm/<model.lm.name>.py: `hidden`,
+`token_loss`), built on `lora_lin` here.
 """
 
 from __future__ import annotations
@@ -18,11 +20,12 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import core
 from . import audio as RA
 from . import model as R
+
 
 def named_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
     """(path, tensor) of every leaf, dict keys and list indices joined by /."""
@@ -39,53 +42,6 @@ def lora_lin(p, x, ab, scale, P: R.Prec):
         a, b = ab
         y = y + (x.to(P.dtype) @ a.to(P.dtype)) @ (b * scale).to(P.dtype)
     return y
-
-
-def decoder_hidden(lc, p, lora, scale: float, x: torch.Tensor, P: R.Prec) -> torch.Tensor:
-    """The decoder over one sequence x [N, H] with LoRA (B scaled by
-    `scale`, alpha / r); final hidden [N, H]."""
-    N = x.shape[0]
-    pos = torch.arange(N, device=x.device)
-    hd = lc.head_dim
-
-    def one(i, h):
-        lp = R.layer(p["layers"], i)
-        ab = {k: (lora[k]["a"][i], lora[k]["b"][i]) for k in lora}
-        y = R.rms(lp["input_norm"], h, lc.rms_norm_eps, P)
-        q = R.rope(lora_lin(lp["q_proj"], y, ab.get("q_proj"), scale, P).reshape(1, N, lc.num_heads, hd),
-                   pos, lc.rope_theta)
-        k = R.rope(lora_lin(lp["k_proj"], y, ab.get("k_proj"), scale, P).reshape(1, N, lc.num_kv_heads, hd),
-                   pos, lc.rope_theta)
-        v = lora_lin(lp["v_proj"], y, ab.get("v_proj"), scale, P).reshape(1, N, lc.num_kv_heads, hd)
-        h = h + lora_lin(lp["o_proj"], R.attend(q, k, v, causal_from=0).reshape(1, N, -1),
-                         ab.get("o_proj"), scale, P)
-        y = R.rms(lp["post_attn_norm"], h, lc.rms_norm_eps, P)
-        m = lp["mlp"]
-        g = lora_lin(m["gate"], y, ab.get("mlp/gate"), scale, P)
-        u = lora_lin(m["up"], y, ab.get("mlp/up"), scale, P)
-        return h + lora_lin(m["down"], F.silu(g) * u, ab.get("mlp/down"), scale, P)
-
-    h = x.to(P.dtype)[None]
-    for i in range(lc.num_layers):
-        h = checkpoint(one, i, h, use_reentrant=False)
-    return R.rms(p["final_norm"], h[0], lc.rms_norm_eps, P)
-
-
-def token_loss(lc, p, hidden: torch.Tensor, targets: torch.Tensor, P: R.Prec, chunk: int = 512):
-    """Sum of -log p(target) over rows with a target (>= 0), the head
-    applied to chunks of rows."""
-    head = p["embed"]["embedding"].T if lc.tie_word_embeddings else p["lm_head"]["w"]
-
-    def part(h, t):
-        logits = (h @ P.w(head)).float()
-        valid = t >= 0
-        ll = torch.log_softmax(logits, -1).gather(1, t.clamp(0, logits.shape[1] - 1)[:, None])[:, 0]
-        return -(ll * valid).sum()
-
-    total = hidden.new_zeros((), dtype=torch.float32)
-    for c in range(0, hidden.shape[0], chunk):
-        total = total + checkpoint(part, hidden[c:c + chunk], targets[c:c + chunk], use_reentrant=False)
-    return total
 
 
 def sample_loss(m, params, train: Dict, lora, lora_scale: float, batch: Dict, cuts,
@@ -128,14 +84,15 @@ def sample_loss(m, params, train: Dict, lora, lora_scale: float, batch: Dict, cu
     labels = batch["labels"][0]
     tl, ip = int(batch["text_len"][0]), int(batch["image_pos"][0])
     nv = min(vis.shape[0], max_len - (tl - 1))
-    text = R.embed(m.lm, params["lm"], ids[:tl], P)
+    lm = core.lm_family(m)
+    text = lm.embed(m.lm, params["lm"], ids[:tl], P)
     seq = torch.cat([text[:ip], vis[:nv].to(P.dtype), text[ip + 1:tl]])[:max_len]
     lab = torch.cat([labels[:ip], torch.full((nv,), -100, device=dev, dtype=labels.dtype),
                      labels[ip + 1:tl]])[:max_len]
-    hidden = decoder_hidden(m.lm, params["lm"], lora, lora_scale, seq, P)
+    hidden = lm.hidden(m.lm, params["lm"], lora, lora_scale, seq, P)
     targets = lab[1:].long()
     n = (targets >= 0).sum().clamp_min(1)
-    return token_loss(m.lm, params["lm"], hidden[:-1], targets, P) / n, cgap
+    return lm.token_loss(m.lm, params["lm"], hidden[:-1], targets, P) / n, cgap
 
 
 class AdamW:

@@ -11,7 +11,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from . import weights
+from . import traffic, weights
 from .reference.model import namespace
 
 
@@ -25,33 +25,58 @@ def _plain(o):
     return o
 
 
-def _diff(a, b, path="") -> List[str]:
-    if isinstance(a, dict) and isinstance(b, dict):
-        return [d for k in sorted(set(a) | set(b)) for d in _diff(a.get(k), b.get(k), f"{path}.{k}")]
-    return [] if a == b else [f"{path.lstrip('.')}: file {b!r}, port {a!r}"]
+def _default(f: dataclasses.Field):
+    if f.default is not dataclasses.MISSING:
+        return _plain(f.default)
+    if f.default_factory is not dataclasses.MISSING:
+        return _plain(f.default_factory())
+    return dataclasses.MISSING
+
+
+def _diff(port, file, path="") -> List[str]:
+    """Every key the file states, at every depth, against the port's value;
+    a field of the port's dataclass that the file leaves out passes only
+    where it holds that field's default (a field the port gained since)."""
+    if not (dataclasses.is_dataclass(port) and isinstance(file, dict)):
+        a = _plain(port)
+        return [] if a == file else [f"{path.lstrip('.')}: file {file!r}, port {a!r}"]
+    fields = {f.name: f for f in dataclasses.fields(port)}
+    out = []
+    for k in sorted(set(fields) | set(file)):
+        where = f"{path}.{k}"
+        if k in file:
+            out += _diff(getattr(port, k, None), file[k], where)
+            continue
+        held, default = _plain(getattr(port, k)), _default(fields[k])
+        if held != default:
+            out.append(f"{where.lstrip('.')}: not in the file, port {held!r} (default {default!r})")
+    return out
 
 
 def port_config(cfile: Dict[str, Any]):
     """The port's TDCConfig for a configuration file: its preset, which must
     hold every size the file states (the file is the configuration as it is
-    run)."""
+    run), and its defaults in every field the file leaves out."""
     from tdc_video_tpu_torch import config as C
 
     cfg = getattr(C, cfile["preset"])(audio=bool(cfile.get("audio", False)))
-    port = {f.name: _plain(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
-    bad = _diff({k: port.get(k) for k in cfile["model"]}, cfile["model"])
+    bad = _diff(cfg, cfile["model"])
     if bad:
         raise ValueError("the port's preset differs from the configuration file: " + "; ".join(bad))
     return cfg
 
 
 class System:
-    """The port's config, the model's namespace for the reference, and the
-    shared weights (bf16, made on the device from the seed)."""
+    """The port's config, the model's namespace for the reference, the
+    file's tokenizer, and the shared weights (bf16, made on the device from
+    the seed)."""
 
     def __init__(self, cfile: Dict[str, Any], seed: int, device, cfg=None):
         self.cfile = cfile
         self.model = namespace(cfile["model"])
+        # beside the sizes, for the counts that tokenize a request's prompt
+        # again and see only the model (the drivers' `flops`)
+        self.model.tokenizer = traffic.tokenizer(cfile)
         self.cfg = port_config(cfile) if cfg is None else cfg
         self.device = torch.device(device)
         t0 = time.perf_counter()

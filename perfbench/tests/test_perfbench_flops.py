@@ -5,6 +5,7 @@ K5 + K6 pair are judged on the same work."""
 
 import pytest
 
+from perfbench import core
 from perfbench import flops as F
 
 
@@ -55,9 +56,12 @@ def test_roofline_never_counts_kernels_it_did_not_time():
 
 def test_lm_flops_is_two_per_parameter_and_row_plus_attention():
     class LM:
-        hidden_size, num_heads, num_kv_heads, head_dim = 64, 4, 2, 16
+        name, hidden_size, num_heads, num_kv_heads, head_dim = "qwen2", 64, 4, 2, 16
         intermediate_size, num_layers, vocab_size = 128, 2, 100
+
+    class Model:
+        lm = LM
 
     per_layer = 64 * (2 * 64 + 2 * 32) + 3 * 64 * 128
     want = 2 * (2.0 * 10 * per_layer + 4 * 16 * 4 * 55) + 2 * 64 * 100
-    assert F.lm(LM, 10) == want
+    assert core.lm_family(Model).forward_flops(LM, 10) == want

@@ -1,6 +1,7 @@
 """Nothing the benchmark runs imports JAX or the JAX package (compared by
 whole top-level name: the port's name begins with the JAX package's), and
-the reference imports nothing of the port."""
+the reference and the decoder families (perfbench/lm/) import nothing of
+the port."""
 
 import ast
 
@@ -26,7 +27,8 @@ def test_no_jax(path):
     assert not top_imports(path) & set(core.FORBIDDEN)
 
 
-@pytest.mark.parametrize("path", sorted((core.HERE / "reference").rglob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((core.HERE / "reference").rglob("*.py"))
+                         + sorted((core.HERE / "lm").rglob("*.py")), ids=lambda p: p.name)
 def test_reference_is_independent_of_the_port(path):
     assert "tdc_video_tpu_torch" not in top_imports(path)
     assert "tdc_video_tpu_torch" not in path.read_text()

@@ -1,6 +1,8 @@
 """BENCHMARK.json and the files it names: the contract's keys and names, and
 every configuration, mix, driver and per-layer metric found by name."""
 
+import copy
+import dataclasses
 import json
 import re
 
@@ -48,6 +50,37 @@ def test_config_file_is_the_ports_preset(entry):
     cfile = core.read_json(core.REPO / entry["file"])
     assert entry["file"].startswith("perfbench/configs/")
     system.port_config(cfile)  # raises on any size the port's preset does not hold
+
+
+@pytest.mark.parametrize("experts, stated, named", [
+    (0, {}, None),
+    (8, {}, "lm.num_experts: not in the file, port 8 (default 0)"),
+    (0, {"num_layers": 27}, "lm.num_layers: file 27, port 28"),
+], ids=["new_field_at_its_default", "new_field_off_its_default", "stated_key_differs"])
+def test_preset_check_with_a_field_the_file_leaves_out(monkeypatch, experts, stated, named):
+    """The port's LMConfig as it would be with a field gained since the
+    configuration files were written (num_experts, default 0)."""
+    from tdc_video_tpu_torch import config as C
+
+    @dataclasses.dataclass(frozen=True)
+    class LMWithExperts(C.LMConfig):
+        num_experts: int = 0
+
+    preset = C.tdc_qwen2_7b
+
+    def gained(audio=False):
+        cfg = preset(audio)
+        lm = {f.name: getattr(cfg.lm, f.name) for f in dataclasses.fields(C.LMConfig)}
+        return dataclasses.replace(cfg, lm=LMWithExperts(**lm, num_experts=experts))
+
+    monkeypatch.setattr(C, "tdc_qwen2_7b", gained)
+    cfile = copy.deepcopy(core.read_json(core.HERE / "configs" / "tdc_qwen2_7b.json"))
+    cfile["model"]["lm"].update(stated)
+    if named is None:
+        assert system.port_config(cfile).lm.num_experts == 0
+    else:
+        with pytest.raises(ValueError, match=re.escape(named)):
+            system.port_config(cfile)
 
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])

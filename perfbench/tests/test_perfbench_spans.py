@@ -32,7 +32,7 @@ def test_traced_serving_run_reads_the_span_metrics(kind, tiny, tiny_mix):
     name = {"answer": "qa_long_video", "answer_many": "qa_open_answers"}[kind]
     res = _traced({"name": name, "chips": 1}, system.cfile, tiny_mix(kind), system)
     want = _new(name)
-    assert len(want) == {"answer": 5, "answer_many": 2}[kind]
+    assert len(want) == {"answer": 5, "answer_many": 3}[kind]
     assert want <= set(res["metrics"]), want - set(res["metrics"])
     if kind == "answer_many":
         m = res["metrics"]

@@ -46,3 +46,41 @@ def test_tokenizer_maps_chatml_specials():
     ids = tok.encode("<|im_start|>user\nhi<|im_end|>")
     assert ids[0] == 151644 and ids[-1] == 151645
     assert tok.decode(ids) == "user\nhi"
+
+
+QWEN2 = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|endoftext|>": 151643}
+SLICED = {"<|im_start|>": 18990, "<|im_end|>": 18991, "<|endoftext|>": 18992}
+LM = {"vocab_size": 19008, "eos_token_ids": [18991, 18992], "pad_token_id": 18992}
+
+
+CHATML = {k: SLICED[k] for k in ("<|im_start|>", "<|im_end|>")}
+
+
+@pytest.mark.parametrize("block, specials", [
+    (None, QWEN2),
+    ({"specials": SLICED}, SLICED),
+    ({"specials": CHATML}, CHATML),
+], ids=["no_block_is_qwen2", "block", "block_without_endoftext"])
+def test_tokenizer_from_the_configuration_file(block, specials):
+    tok = traffic.tokenizer({"model": {"lm": LM}, **({"tokenizer": block} if block else {})})
+    assert tok.specials == specials
+    ids = tok.encode("<|im_start|>user\nhi<|im_end|>")
+    assert ids == [specials["<|im_start|>"], *(1000 + b for b in b"user\nhi"), specials["<|im_end|>"]]
+    assert tok.decode(ids) == "user\nhi"
+
+
+SMALL = {"<|im_start|>": 1, "<|im_end|>": 2, "<|endoftext|>": 3}
+
+
+@pytest.mark.parametrize("lm, block", [
+    (LM, {"specials": {"<|im_start|>": 18990, "<|endoftext|>": 18992}}),
+    (LM, {"specials": {**SLICED, "<|im_start|>": 19008}}),
+    ({"vocab_size": 1200, "eos_token_ids": [2], "pad_token_id": 3}, {"specials": SMALL}),
+    (LM, {"specials": {**SLICED, "<|endoftext|>": 1010}}),
+    (LM, {"specials": {**SLICED, "<|im_end|>": 18993}}),
+    (LM, {"specials": {**SLICED, "<|endoftext|>": 18991}}),
+], ids=["no_im_end", "id_past_the_vocabulary", "bytes_past_the_vocabulary", "special_among_the_bytes",
+        "im_end_not_an_eos", "endoftext_not_the_pad"])
+def test_a_tokenizer_block_the_decoder_cannot_take_is_refused(lm, block):
+    with pytest.raises(ValueError):
+        traffic.tokenizer({"model": {"lm": lm}, "tokenizer": block})

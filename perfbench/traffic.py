@@ -1,5 +1,6 @@
 """Seeded traffic: synthetic videos with scene cuts, soundtracks, questions,
-and a byte-level tokenizer with Qwen2's chat specials.
+and a byte-level tokenizer with the configuration's chat specials (Qwen2's
+unless its file says otherwise).
 
 One generator serves every mix: a mix file (perfbench/mixes/<name>.json)
 only sets its parameters.  Every draw is keyed on (seed, stream, index), so
@@ -9,7 +10,7 @@ counts, token budgets) follow fixed cycles that no seed changes.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -25,27 +26,65 @@ def rng(seed: int, stream: str, index: int = 0) -> np.random.Generator:
     return np.random.default_rng([abs(int(seed)), key, int(index)])
 
 
-class QwenByteTokenizer:
-    """Byte b -> id 1000 + b; the ChatML specials map to Qwen2's ids."""
+# Qwen2's ChatML ids: the tokenizer of a configuration without a `tokenizer` block
+QWEN2_SPECIALS = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|endoftext|>": 151643}
+CHATML = ("<|im_start|>", "<|im_end|>")
 
-    SPECIALS = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|endoftext|>": 151643}
+
+class ByteTokenizer:
+    """Byte b -> id byte_base + b; each special (text -> id) to its id."""
+
     bos_token_id = None
 
+    def __init__(self, specials: Dict[str, int], byte_base: int = 1000):
+        self.specials, self.byte_base = dict(specials), int(byte_base)
+
     def encode(self, text: str) -> List[int]:
-        ids, i = [], 0
+        ids, i, base = [], 0, self.byte_base
         while i < len(text):
-            for s, sid in self.SPECIALS.items():
+            for s, sid in self.specials.items():
                 if text.startswith(s, i):
                     ids.append(sid)
                     i += len(s)
                     break
             else:
-                ids.extend(1000 + b for b in text[i].encode("utf-8"))
+                ids.extend(base + b for b in text[i].encode("utf-8"))
                 i += 1
         return ids
 
     def decode(self, ids) -> str:
-        return bytes(int(t) - 1000 for t in ids if 1000 <= int(t) < 1256).decode("utf-8", "replace")
+        base = self.byte_base
+        return bytes(int(t) - base for t in ids if base <= int(t) < base + 256).decode("utf-8", "replace")
+
+
+class QwenByteTokenizer(ByteTokenizer):
+    """The byte tokenizer with Qwen2's ChatML ids."""
+
+    def __init__(self):
+        super().__init__(QWEN2_SPECIALS)
+
+
+def tokenizer(cfile: dict) -> ByteTokenizer:
+    """The configuration file's tokenizer: its optional `tokenizer` block,
+    {"specials": {text: id}} (the ChatML specials at least; every id inside
+    the decoder's vocabulary and off the byte ids, `<|im_end|>` among the
+    decoder's `eos_token_ids` and `<|endoftext|>` its `pad_token_id`, so
+    that prompts and targets end on the ids that serving stops on), else
+    Qwen2's ids."""
+    block = cfile.get("tokenizer")
+    if block is None:
+        return QwenByteTokenizer()
+    tok = ByteTokenizer(block["specials"])
+    lm, base = cfile["model"]["lm"], tok.byte_base
+    vocab, sp = lm["vocab_size"], tok.specials
+    if (not set(CHATML) <= set(sp) or not all(0 <= i < vocab for i in list(sp.values()) + [base + 255])
+            or any(base <= i < base + 256 for i in sp.values())
+            or sp["<|im_end|>"] not in lm["eos_token_ids"]
+            or sp.get("<|endoftext|>", lm["pad_token_id"]) != lm["pad_token_id"]):
+        raise ValueError(f"tokenizer block {block!r}: needs {CHATML}, ids under {vocab} and off the "
+                         f"byte ids, <|im_end|> among eos_token_ids {lm['eos_token_ids']} and "
+                         f"<|endoftext|> equal to pad_token_id {lm['pad_token_id']}")
+    return tok
 
 
 def video(seed: int, stream: str, index: int, n_frames: int, height: int, width: int,
